@@ -7,19 +7,33 @@ Phases, in order, one JSON line each; any failure raises and the script
 exits non-zero:
 
 1. ``build``: nvcc builds every kernel of the port from ``csrc/`` (one
-   process per source, started together).
+   process per source, all started together).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes (B=64, C=256, P2..P4 at 256 px tiles; box
-   pooler R=32 P=7, mask pooler R=8 P=14) and on an edge batch; its time,
-   the plain version's time and the least time the card could take.
+   at its main path's shapes and on edge batches; its time, the plain
+   version's time and the least time the card could take.
+   K1 (``roi_align``): the fast profile's poolers (B=64, C=256, P2..P4 at
+   256 px tiles; box R=32 P=7, mask R=8 P=14, s=2). K2
+   (``roi_align_blocked``): the parity profile's poolers (B=16, C=256,
+   P2..P5 at 800 px; box R=1000 P=7, mask R=100 P=14, adaptive) and the
+   box pooler at s=2. K3 (``nms``): the parity profile's NMS problems
+   (RPN: 16·5 problems of 1000 boxes at t=0.7; classes: 16 problems of
+   2000 boxes at t=0.5), suppression chains, equal scores and all-padded
+   problems, held equal bit for bit.
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
-   64 random 256 px tiles, the last one short; every kernel must have been
-   launched by it, and the outputs must be finite, of the right shapes,
+   64 random 256 px tiles, the last one short; K1 must have been launched
+   twice per batch, and the outputs must be finite, of the right shapes,
    with valid detections, and equal to a direct ``forward_inference`` of
    the same batch (first and short last batch).
-4. ``profile``: device time by kernel over two more batches of the main
-   path (torch.profiler) and the device's busy share of the wall clock.
+4. ``profile``: device time by kernel over two more batches of that path
+   (torch.profiler) and the device's busy share of the wall clock.
+5. ``main_path_parity``: the parity profile, the configuration
+   ``make_detections`` builds from config/detectron2_config_3bands.yaml
+   (800 px, adaptive sampling, 1000 proposals, 100 detections, exact
+   NMS), through ``TileInferenceEngine(batch_size=16, mask_format="bits")``
+   over batches of random 256 px tiles, the last one short, with the same
+   checks; K2 and K3 must have been launched twice per batch each.
+6. ``profile`` of the parity path.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -40,13 +54,25 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
-# |kernel - plain| <= 2^-8·|plain| + 1e-4: one bf16 rounding of the output
-# (half an ulp, at most 2^-8 relative) over f32 sums of 16 taps taken in
-# another order (kernel (wy·wx)·f per tap, plain (Σ wy·f)·wx; ~1e-5 at the
-# pooled values' magnitude of ~4). A misplaced sample costs ~1e-1.
+# |kernel - plain| <= 2^-8·|plain| + 1e-4, for K1 and K2: one bf16 rounding
+# of the output (half an ulp, at most 2^-9 relative) over f32 sums taken in
+# another order (K1 (wy·wx)·f per tap, K2 wy·Σ wx·f per row, the plain
+# versions (Σ wy·f)·wx): a few ulps of Σ|w·f| ≤ max |f| ~ 5, ~1e-5. The
+# weights themselves, and so every sample's border decision, are computed
+# with the same operations in both. A misplaced sample costs ~1e-1.
 REL_TOL, ABS_TOL = 2.0 ** -8, 1e-4
-B, C, TILE = 64, 256, 256
+C = 256
+# fast profile: batch, tile side, poolers (name, R, P)
+B, TILE = 64, 256
 POOLERS = (("box", 32, 7), ("mask", 8, 14))
+# parity profile: batch, resized side, P2..P5 sides, poolers (name, R, P, s)
+PB, PSIDE = 16, 800
+PLEVELS = (200, 100, 50, 25)
+PPOOLERS = (("box", 1000, 7, 0), ("mask", 100, 14, 0),
+            ("box_s2", 1000, 7, 2))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+YAML = "config/detectron2_config_3bands.yaml"
+PAIR_FLOPS = 12                 # f32 operations of one NMS pair test
 
 
 def _require(cond: bool, msg: str):
@@ -58,10 +84,10 @@ def _emit(obj: dict):
     print(json.dumps(obj), flush=True)
 
 
-def _time_ms(fn, iters: int) -> float:
+def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, CUDA events, after
-    two warm-up calls."""
-    for _ in range(2):
+    ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -73,15 +99,45 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes: float, flops: float) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _counters():
+    from roadsurf_tpu_torch.ops.nms_kernel import nms_keep_mask
+    from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import \
+        roi_align_fused_blocked
+    from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused
+
+    return {"roi_align": roi_align_fused,
+            "roi_align_blocked": roi_align_fused_blocked,
+            "nms": nms_keep_mask}
+
+
+def _reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+# ---------------------------------------------------------------------------
+# build
+
 def phase_build() -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
-    from roadsurf_tpu_torch.ops import roi_align_kernel
+    from roadsurf_tpu_torch.ops import cuda_build
 
-    builders = {"roi_align": roi_align_kernel.build}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builders)) as ex:
-        futs = {name: ex.submit(fn) for name, fn in builders.items()}
+    with ThreadPoolExecutor(len(cuda_build.SOURCES)) as ex:
+        futs = {name: ex.submit(cuda_build.build, name)
+                for name in cuda_build.SOURCES}
         res = {name: f.result() for name, f in futs.items()}
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
            "kernels": {name: {"seconds": r["seconds"], "cached": r["cached"],
@@ -93,9 +149,23 @@ def phase_build() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# K1 and K2: the poolers
+
+def _agreement(got, ref) -> dict:
+    err = (got.float() - ref).abs()
+    excess = err - (REL_TOL * ref.abs() + ABS_TOL)
+    return {"max_abs_err": float(err.max()),
+            "max_abs_ref": float(ref.abs().max()),
+            "out_of_tolerance": int((excess > 0).sum()),
+            "max_excess_over_tolerance": float(excess.max()),
+            "finite": bool(torch.isfinite(got.float()).all())}
+
+
 def _pool_inputs(g, R: int, edge: bool):
-    """Levels (B, H, W, C) bf16 and boxes (B, R, 4) f32 on the generator's
-    device; the edge batch puts designed boxes first in every image."""
+    """Fast profile: levels (B, H, W, C) bf16 and boxes (B, R, 4) f32 on
+    the generator's device; the edge batch puts designed boxes first in
+    every image."""
     dev = g.device
     feats = tuple(torch.randn((B, TILE // st, TILE // st, C), generator=g,
                               device=dev).to(torch.bfloat16)
@@ -129,31 +199,108 @@ def _pool_inputs(g, R: int, edge: bool):
     return feats, boxes.contiguous()
 
 
-def _work(feats, boxes, lvl, P: int, s: int, min_level: int = 2):
-    """(bytes, FLOPs) this call needs: the feature cells its boxes' taps
-    touch (each read once), boxes and levels read, the output written; 2
-    FLOPs per tap of each valid sample."""
+def _parity_pool_inputs(g, R: int, edge: bool):
+    """Parity profile: P2..P5 of an 800 px image, bf16, and boxes with
+    log-uniform sides from 2 to 800 px (long thin roads included); the edge
+    batch puts designed boxes first in every image."""
+    dev = g.device
+    feats = tuple(torch.randn((PB, s, s, C), generator=g,
+                              device=dev).to(torch.bfloat16)
+                  for s in PLEVELS)
+    u = torch.rand((PB, R, 4), generator=g, device=dev)
+    x0, y0 = u[..., 0] * PSIDE, u[..., 1] * PSIDE
+    w, h = 2 * 400 ** u[..., 2], 2 * 400 ** u[..., 3]
+    boxes = torch.stack([x0, y0, (x0 + w).clamp(max=PSIDE),
+                         (y0 + h).clamp(max=PSIDE)], -1)
+    if edge:
+        S = float(PSIDE)
+        special = torch.tensor([
+            [0, 0, S, S],                  # the whole image (P5)
+            [0, 400, S, 406],              # full-width thin road
+            [300, 0, 304, S],              # full-height thin road
+            [10, 10, 12, 12],              # 2x2 px
+            [0, 0, 0, 0],                  # padded zero boxes
+            [0, 0, 0, 0],
+            [500, 500, 500, 520],          # zero width
+            [-100, -100, 900, 900],        # beyond every border
+            [-50, 300, 40, 340],           # across the left border
+            [780, 780, 850, 830],          # beyond the far corner
+            [-4, 300, 24, 328],            # a P2 sample exactly at c = -1
+            [776, 300, 804, 328],          # ... and exactly at c = W
+            [300, -4, 328, 24],            # the same along y
+            [300, 776, 328, 804],
+            [0, 0, 112, 112],              # level boundary: P3
+            [0, 0, 111.9, 111.9],          # just below it: P2
+            [0, 0, 224, 224],              # level boundary: P4
+            [0, 0, 223.9, 223.9],          # just below it: P3
+            [0, 0, 448, 448],              # level boundary: P5
+            [0, 0, 447.9, 447.9],          # just below it: P4
+            [799, 0, 800, 800],            # last column
+        ], dtype=torch.float32, device=dev)
+        k = min(R, len(special))
+        boxes[:, :k] = special[:k]
+    return feats, boxes.contiguous()
+
+
+def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
+    """(bytes, FLOPs) a pooling call needs: the feature cells its boxes'
+    taps touch (each read once), boxes and levels read, the output
+    written. FLOPs: K1's form (``per_tap``) does 2 per tap of each valid
+    sample and channel; K2's separable form, for each output bin (p, q)
+    and channel, 2 per cell of row p's non-zero y-weights times column
+    q's non-zero x-weights, and 2 per non-zero y-weight."""
     from roadsurf_tpu_torch.ops.roi_align_kernel import axis_weights
 
     nbytes = boxes.numel() * 4 + lvl.numel() * 4 \
         + boxes.shape[0] * boxes.shape[1] * P * P * C * 2
     flops = 0.0
-    for wy, wx in axis_weights(feats, boxes, lvl, P, s, min_level):
-        rows = (wy > 0).any(dim=2).float()                    # (B, R, H)
-        cols = ((wx > 0).any(dim=2) & (wy > 0).any(dim=(2, 3))[..., None]
-                ).float()                                     # (B, R, W)
-        touched = torch.einsum("brh,brw->bhw", rows, cols) > 0
-        nbytes += int(touched.sum()) * C * 2
-        # a valid sample's taps sum to 1/s on its axis
-        ny = torch.round(wy.sum(-1) * s)                      # (B, R, P)
-        nx = torch.round(wx.sum(-1) * s)
-        flops += float((ny.sum(-1) * nx.sum(-1)).sum()) * 4 * 2 * C
+    for b in range(boxes.shape[0]):      # one image at a time: memory
+        ws = axis_weights(tuple(f[b:b + 1] for f in feats), boxes[b:b + 1],
+                          lvl[b:b + 1], P, s, 2)
+        for wy, wx in ws:
+            rows = (wy > 0).any(dim=2).float()                 # (1, R, H)
+            cols = ((wx > 0).any(dim=2)
+                    & (wy > 0).any(dim=(2, 3))[..., None]).float()
+            touched = torch.einsum("brh,brw->bhw", rows, cols) > 0
+            nbytes += int(touched.sum()) * C * 2
+            if per_tap:
+                # a valid sample's taps sum to 1/s on its axis
+                ny = torch.round(wy.sum(-1) * s)               # (1, R, P)
+                nx = torch.round(wx.sum(-1) * s)
+                flops += float((ny.sum(-1) * nx.sum(-1)).sum()) * 4 * 2 * C
+            else:
+                ny = (wy != 0).sum(-1).float()                 # (1, R, P)
+                nx = (wx != 0).sum(-1).float()
+                flops += float((ny.sum(-1) * (nx.sum(-1) + P)).sum()) \
+                    * 2 * C
     return nbytes, flops
 
 
-def phase_kernels() -> dict:
+def _pool_case(kernel, plain, feats, boxes, P, s, plain_iters: int,
+               per_tap: bool, **meta) -> dict:
     from roadsurf_tpu_torch.ops.roi_align import level_assignment, \
         reachable_levels
+
+    n_lev = reachable_levels(feats)
+    lvl = level_assignment(boxes, 224, 4, 2, 2 + n_lev - 1).contiguous()
+    got = kernel(feats, boxes, lvl, P, s)
+    ref = plain(feats, boxes, lvl, P, s)
+    torch.cuda.synchronize()
+    case = {**meta, "R": boxes.shape[1], "P": P, "sampling": s, "C": C,
+            "B": boxes.shape[0], "levels": [f.shape[1] for f in feats],
+            "boxes_per_level": torch.bincount(
+                lvl.flatten(), minlength=n_lev).tolist(),
+            **_agreement(got, ref)}
+    del ref
+    case.update(
+        ms=_time_ms(lambda: kernel(feats, boxes, lvl, P, s), 20),
+        plain_ms=_time_ms(lambda: plain(feats, boxes, lvl, P, s),
+                          plain_iters, warmup=1),
+        **_bound(*_pool_work(feats, boxes, lvl, P, s, per_tap)))
+    return case
+
+
+def phase_kernels_k1() -> list:
     from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused, \
         roi_align_fused_ref
 
@@ -162,52 +309,153 @@ def phase_kernels() -> dict:
     for edge in (False, True):
         for name, R, P in POOLERS:
             feats, boxes = _pool_inputs(g, R, edge)
-            n_lev = reachable_levels(feats)
-            _require(n_lev == 3, f"{n_lev} reachable levels at 256 px")
-            lvl = level_assignment(boxes, 224, 4, 2, 2 + n_lev - 1) \
-                .contiguous()
-            got = roi_align_fused(feats, boxes, lvl, P, 2)
-            ref = roi_align_fused_ref(feats, boxes, lvl, P, 2)
-            torch.cuda.synchronize()
-            err = (got.float() - ref).abs()
-            excess = err - (REL_TOL * ref.abs() + ABS_TOL)
-            bad = int((excess > 0).sum())
-            case = {"pooler": name, "edge": edge, "B": B, "R": R, "P": P,
-                    "C": C, "levels": [f.shape[1] for f in feats],
-                    "boxes_per_level": torch.bincount(
-                        lvl.flatten(), minlength=n_lev).tolist(),
-                    "max_abs_err": float(err.max()),
-                    "max_abs_ref": float(ref.abs().max()),
-                    "out_of_tolerance": bad,
-                    "max_excess_over_tolerance": float(excess.max()),
-                    "finite": bool(torch.isfinite(got.float()).all())}
-            if not edge:
-                nbytes, flops = _work(feats, boxes, lvl, P, 2)
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / F32_FLOPS_PER_S * 1e3
-                case.update(
-                    ms=_time_ms(lambda: roi_align_fused(feats, boxes, lvl,
-                                                        P, 2), 50),
-                    plain_ms=_time_ms(lambda: roi_align_fused_ref(
-                        feats, boxes, lvl, P, 2), 5),
-                    bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+            case = _pool_case(roi_align_fused, roi_align_fused_ref, feats,
+                              boxes, P, 2, 5, True, pooler=name, edge=edge,
+                              main=not edge)
+            _require(case["levels"] == [64, 32, 16]
+                     and len(case["boxes_per_level"]) == 3,
+                     f"not 3 levels of a 256 px tile: {case}")
             _emit({"phase": "kernels", "kernel": "roi_align", **case})
-            _require(case["finite"] and bad == 0,
+            _require(case["finite"] and case["out_of_tolerance"] == 0,
                      f"roi_align disagrees with its plain version: {case}")
             cases.append(case)
-    return {"roi_align": cases}
+    return cases
 
 
-def phase_main_path(n_batches: int = 7, tail: int = 40) -> dict:
-    from roadsurf_tpu_torch.engine import TileInferenceEngine
-    from roadsurf_tpu_torch.models import fast_profile, forward_inference, \
-        init_params
-    from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused
-    from roadsurf_tpu_torch.utils.weights import from_jax_params
+def phase_kernels_k2() -> list:
+    from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import \
+        roi_align_fused_blocked, roi_align_fused_blocked_ref
 
-    cfg = fast_profile(post_nms_topk=32)
-    gen = torch.Generator().manual_seed(0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for edge in (False, True):
+        for name, R, P, s in PPOOLERS:
+            feats, boxes = _parity_pool_inputs(g, R, edge)
+            case = _pool_case(roi_align_fused_blocked,
+                              roi_align_fused_blocked_ref, feats, boxes, P,
+                              s, 2, False, pooler=name, edge=edge,
+                              main=not edge and s == 0)
+            torch.cuda.empty_cache()
+            _require(len(case["boxes_per_level"]) == 4,
+                     f"not 4 levels at 800 px: {case}")
+            _emit({"phase": "kernels", "kernel": "roi_align_blocked",
+                   **case})
+            _require(case["finite"] and case["out_of_tolerance"] == 0,
+                     f"roi_align_blocked disagrees with its plain version: "
+                     f"{case}")
+            cases.append(case)
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# K3: the greedy NMS keep mask
+
+def _nms_problems(g, P: int, N: int, side: float):
+    """(boxes (P, N, 4), scores (P, N)): boxes in clusters around 40
+    centres (overlapping detections of a few objects), bf16-quantized
+    scores (ties, as the bf16 RPN logits give)."""
+    dev = g.device
+    centres = torch.rand((P, 40, 2), generator=g, device=dev) * side
+    pick = torch.randint(0, 40, (P, N), generator=g, device=dev)
+    c = torch.gather(centres, 1, pick[..., None].expand(P, N, 2)) \
+        + torch.randn((P, N, 2), generator=g, device=dev) * side / 100
+    half = (0.01 + 0.1 * torch.rand((P, N, 2), generator=g, device=dev)) \
+        * side
+    boxes = torch.cat([c - half, c + half], -1).clamp(0, side)
+    scores = torch.randn((P, N), generator=g, device=dev) \
+        .to(torch.bfloat16).float()
+    return boxes.contiguous(), scores.contiguous()
+
+
+def _nms_cases(g):
+    """(name, boxes, scores, t), inputs in no particular order."""
+    from roadsurf_tpu_torch.ops.nms import NEG_INF
+
+    dev = g.device
+    rpn_b, rpn_s = _nms_problems(g, PB * 5, 1000, float(PSIDE))
+    rpn_s.view(PB, 5, 1000)[:, 4, 507:] = NEG_INF      # P6: 507 anchors
+    cls_b, cls_s = _nms_problems(g, PB, 2000, float(PSIDE))
+    # the class-offset trick: class 1's boxes shifted past class 0's
+    cls_b[:, 1::2] += PSIDE + 1.0
+    n = 1000
+    i = torch.arange(n, device=dev, dtype=torch.float32)
+    stair = torch.stack([i * 6, torch.zeros_like(i), i * 6 + 10,
+                         torch.full_like(i, 10.0)], -1)[None]
+    ties_b, _ = _nms_problems(g, 4, 1000, 200.0)
+    pad_b, pad_s = _nms_problems(g, 3, 1000, 200.0)
+    pad_s[1:] = NEG_INF                                   # all padded
+    return [
+        ("rpn", rpn_b, rpn_s, 0.7),
+        ("classes", cls_b, cls_s, 0.5),
+        # A kills B, B would kill C: neighbours at IoU 0.25, t 0.2
+        ("chain", stair, torch.linspace(1.0, 0.5, n, device=dev)[None], 0.2),
+        ("chain_equal_scores", stair, torch.full((1, n), 0.5, device=dev),
+         0.2),
+        ("equal_scores", ties_b, torch.full((4, 1000), 0.25, device=dev),
+         0.5),
+        ("padded", pad_b, pad_s, 0.5),
+    ]
+
+
+def phase_kernels_k3() -> list:
+    from roadsurf_tpu_torch.ops import nms
+    from roadsurf_tpu_torch.ops.nms_kernel import nms_keep_mask, \
+        nms_keep_mask_ref
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    for name, boxes, scores, t in _nms_cases(g):
+        order = torch.sort(scores, dim=-1, descending=True,
+                           stable=True).indices
+        sb = torch.gather(boxes, -2, order[..., None].expand(boxes.shape)
+                          ).contiguous()
+        ss = torch.gather(scores, -1, order).contiguous()
+        got = nms_keep_mask(sb, ss, t)
+        ref = nms_keep_mask_ref(sb, ss, t)
+        # the whole exact NMS: on the card (K3) against on the CPU (the
+        # plain version)
+        N = scores.shape[-1]
+        ks, ki = nms.nms_fixed(boxes, scores, t, N)
+        rs, ri = nms.nms_fixed(boxes.cpu(), scores.cpu(), t, N)
+        ks, ki = ks.cpu(), ki.cpu()
+        valid = ss > nms.NEG_INF / 2
+        case = {"case": name, "main": name in ("rpn", "classes"),
+                "problems": scores.numel() // N, "N": N, "iou_thresh": t,
+                "mismatches": int((got != ref).sum()),
+                "nms_fixed_mismatches": int((ks != rs).sum()
+                                            + (ki != ri).sum()),
+                "kept": int(ref.sum()), "valid": int(valid.sum())}
+        # pairs the scan tests: every kept rank against the later valid
+        # boxes
+        later = valid.sum(-1, keepdim=True) - 1 \
+            - torch.arange(N, device=ref.device)
+        pairs = float((later.clamp(min=0) * ref).sum())
+        nbytes = sb.numel() * 4 + ss.numel() * 4 + ref.numel()
+        case.update(
+            ms=_time_ms(lambda: nms_keep_mask(sb, ss, t), 20),
+            plain_ms=_time_ms(lambda: nms_keep_mask_ref(sb, ss, t), 3,
+                              warmup=1),
+            pairs=pairs, **_bound(nbytes, pairs * PAIR_FLOPS))
+        _emit({"phase": "kernels", "kernel": "nms", **case})
+        _require(case["mismatches"] == 0
+                 and case["nms_fixed_mismatches"] == 0,
+                 f"nms keep mask differs from its plain version: {case}")
+        if name == "padded":
+            _require(not bool(got[1:].any()), "a padded problem kept a box")
+        if name == "chain":
+            _require(torch.equal(got[0], torch.arange(
+                got.shape[-1], device=got.device) % 2 == 0),
+                "the chain did not keep every other box")
+        cases.append(case)
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# main paths
+
+def _random_tree(cfg, gen):
+    from roadsurf_tpu_torch.models import init_params
+
     tree = init_params(cfg, gen)
     # the reference zero-inits the residual branches' FrozenBN scales;
     # give them values so every conv of the backbone computes
@@ -216,14 +464,31 @@ def phase_main_path(n_batches: int = 7, tail: int = 40) -> dict:
             sc = bp["conv3"]["scale"]
             bp["conv3"]["scale"] = 0.1 + 0.2 * torch.rand(sc.shape,
                                                            generator=gen)
-    eng = TileInferenceEngine(from_jax_params(tree), cfg, batch_size=B)
+    return tree
+
+
+def _drive(label: str, cfg, batch: int, sizes: list, mask_format: str,
+           expect: dict, mask_key: str, mask_shape: tuple):
+    """Run ``TileInferenceEngine`` over random 256 px tiles in batches of
+    ``sizes`` after one warm-up batch, with every launch count set to 0
+    just before; check the launches (``expect``: per batch), the outputs
+    and the engine against a direct forward of the first and the last
+    (padded) batch."""
+    from roadsurf_tpu_torch.engine import TileInferenceEngine
+    from roadsurf_tpu_torch.models import forward_inference
+    from roadsurf_tpu_torch.utils.weights import from_jax_params
+
+    gen = torch.Generator().manual_seed(0)
+    eng = TileInferenceEngine(from_jax_params(_random_tree(cfg, gen)), cfg,
+                              batch_size=batch, mask_format=mask_format)
     rng = np.random.default_rng(0)
-    sizes = [B] * (n_batches - 1) + [tail]
     batches = [rng.integers(0, 256, (n, TILE, TILE, 3), np.uint8)
                for n in sizes]
-    warm = rng.integers(0, 256, (B, TILE, TILE, 3), np.uint8)
+    warm = rng.integers(0, 256, (batch, TILE, TILE, 3), np.uint8)
 
-    roi_align_fused.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
     list(eng.run([warm]))                          # warm-up batch
     stats0 = dict(eng.stats)
     torch.cuda.synchronize()
@@ -235,12 +500,13 @@ def phase_main_path(n_batches: int = 7, tail: int = 40) -> dict:
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"roi_align": roi_align_fused.launches}
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
 
     dispatched = 1 + len(batches)
-    _require(launches["roi_align"] == 2 * dispatched,
-             f"roi_align launched {launches['roi_align']} times for "
-             f"{dispatched} batches (2 per batch expected)")
+    want = {k: v * dispatched for k, v in expect.items()}
+    _require(launches == want, f"{label}: launches {launches} for "
+             f"{dispatched} batches, expected {want}")
     _require([o["valid"].shape[0] for o in outs] == sizes,
              "batch sizes not trimmed back")
     D = cfg.detections_per_image
@@ -250,9 +516,9 @@ def phase_main_path(n_batches: int = 7, tail: int = 40) -> dict:
                  and o["scores"].shape == (n, D)
                  and o["classes"].shape == (n, D)
                  and o["valid"].shape == (n, D)
-                 and o["mask_logits"].shape == (n, D, 28, 28),
+                 and o[mask_key].shape == (n, D) + mask_shape,
                  f"unexpected shapes {({k: v.shape for k, v in o.items()})}")
-        for k in ("boxes", "scores", "mask_logits"):
+        for k in ("boxes", "scores", mask_key):
             _require(bool(np.isfinite(o[k]).all()), f"{k} not finite")
         _require(bool((o["boxes"] >= 0).all() and (o["boxes"] <= TILE).all()),
                  "boxes outside the tile")
@@ -265,12 +531,13 @@ def phase_main_path(n_batches: int = 7, tail: int = 40) -> dict:
     for i in (0, len(batches) - 1):
         n = sizes[i]
         padded = np.concatenate([batches[i], np.zeros(
-            (B - n, TILE, TILE, 3), np.uint8)])
-        ref = forward_inference(eng.state, padded, cfg)
+            (batch - n, TILE, TILE, 3), np.uint8)])
+        ref = forward_inference(eng.state, padded, cfg,
+                                mask_format=mask_format)
         for k, v in ref.items():
             r = v.cpu().numpy()[:n]
             _require(outs[i][k].dtype == r.dtype, f"{k}: dtype differs")
-            if k in ("valid", "classes"):
+            if k in ("valid", "classes", "mask_bits"):
                 _require(np.array_equal(outs[i][k], r),
                          f"batch {i} {k}: engine != forward")
             else:
@@ -280,22 +547,58 @@ def phase_main_path(n_batches: int = 7, tail: int = 40) -> dict:
              f"engine differs from the forward by {engine_max_diff}")
     tiles = sum(sizes)
     ms = start.elapsed_time(end)
-    res = {"phase": "main_path", "profile": "fast_profile(post_nms_topk=32)",
-           "dtype": cfg.compute_dtype, "batch": B, "batches": sizes,
+    res = {"phase": label, "dtype": cfg.compute_dtype, "batch": batch,
+           "input_size": cfg.min_size_test, "batches": sizes,
            "tiles": tiles, "tiles_per_s": tiles / (ms / 1e3),
            "event_ms": ms, "wall_s": wall,
            "h2d_s": eng.stats["h2d_s"] - stats0["h2d_s"],
            "d2h_s": eng.stats["d2h_s"] - stats0["d2h_s"],
            "valid_detections": n_valid, "launches": launches,
+           "launches_per_batch": expect,
            "engine_vs_forward_max_abs_diff": engine_max_diff,
-           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+           "max_memory_allocated": peak}
+    return res, eng, batches
+
+
+def phase_main_path(n_batches: int = 7, tail: int = 40):
+    from roadsurf_tpu_torch.models import fast_profile
+
+    cfg = fast_profile(post_nms_topk=32)
+    res, eng, batches = _drive(
+        "main_path", cfg, B, [B] * (n_batches - 1) + [tail], "logits",
+        {"roi_align": 2, "roi_align_blocked": 0, "nms": 0}, "mask_logits",
+        (28, 28))
+    res["profile"] = "fast_profile(post_nms_topk=32)"
+    _emit(res)
+    return res, eng, batches
+
+
+def phase_main_path_parity(n_batches: int = 4, tail: int = 9):
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+
+    cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
+    _require((cfg.min_size_test, cfg.pooler_sampling_ratio,
+              cfg.rpn_pre_nms_topk_test, cfg.rpn_post_nms_topk_test,
+              cfg.detections_per_image, cfg.fast_nms)
+             == (PSIDE, 0, 1000, 1000, 100, False),
+             f"unexpected parity config {cfg}")
+    # per batch: K2 for the box and the mask pooler; K3 once for the
+    # RPN's per-level NMS (all five levels in one launch) and once for
+    # the class NMS
+    res, eng, batches = _drive(
+        "main_path_parity", cfg, PB, [PB] * (n_batches - 1) + [tail],
+        "bits", {"roi_align": 0, "roi_align_blocked": 2, "nms": 2},
+        "mask_bits", (98,))
+    res["profile"] = f"from_detectron2_yaml({YAML!r})"
     _emit(res)
     return res, eng, batches
 
 
 def _category(name: str) -> str:
     n = name.lower()
-    for cat, keys in (("roi_align", ("roi_align",)),
+    for cat, keys in (("roi_align_blocked", ("roi_align_blocked",)),
+                      ("roi_align", ("roi_align",)),
+                      ("nms", ("nms",)),
                       ("conv", ("conv", "xmma", "implicit", "cudnn",
                                 "nhwc", "winograd")),
                       ("gemm", ("gemm", "cutlass", "cublas", "matmul")),
@@ -306,8 +609,8 @@ def _category(name: str) -> str:
     return "other"
 
 
-def phase_profile(eng, batches, n: int = 2) -> dict:
-    """Device time by kernel over ``n`` steady batches of the main path
+def phase_profile(label: str, eng, batches, n: int = 2) -> dict:
+    """Device time by kernel over ``n`` steady batches of a main path
     (torch.profiler, CUPTI), and the device's busy share of the wall."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -332,7 +635,8 @@ def phase_profile(eng, batches, n: int = 2) -> dict:
     cats: dict = {}
     for name, ms, _ in kernels:
         cats[_category(name)] = cats.get(_category(name), 0.0) + ms
-    res = {"phase": "profile", "batches": n, "tiles": n * B,
+    res = {"phase": "profile", "path": label, "batches": n,
+           "tiles": sum(len(b) for b in batches[:n]),
            "wall_ms": wall * 1e3, "device_ms": busy,
            "device_busy_share": busy / (wall * 1e3) if wall else None,
            "device_ms_by_category": cats,
@@ -345,7 +649,7 @@ def phase_profile(eng, batches, n: int = 2) -> dict:
 def _toolchain() -> dict:
     from importlib import metadata
 
-    from roadsurf_tpu_torch.ops.roi_align_kernel import nvcc_path
+    from roadsurf_tpu_torch.ops.cuda_build import nvcc_path
 
     out = subprocess.run([nvcc_path(), "--version"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
@@ -359,15 +663,34 @@ def _toolchain() -> dict:
                           if "release" in ln), out.strip())}
 
 
+def _record(name, source, replaces, launches, cases, err_key, per_key):
+    """One entry of the ``kernels`` line: a forward's calls of the kernel
+    (the cases at the main path's shapes, summed) beside their bound and
+    plain time; the error over every case."""
+    timed = [c for c in cases if c["main"]]
+    t_bytes = sum(c["bytes"] for c in timed) / HBM_BYTES_PER_S
+    t_ops = sum(c["flops"] for c in timed) / F32_FLOPS_PER_S
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c[err_key] for c in cases),
+            "ms": sum(c["ms"] for c in timed),
+            "plain_ms": sum(c["plain_ms"] for c in timed),
+            "bound_ms": sum(c["bound_ms"] for c in timed),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "per_call": {c[per_key]: {k: c[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")} for c in timed}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     import roadsurf_tpu_torch  # noqa: F401  (fails outside the repository)
 
     # the plain versions are the references: their f32 products in full
-    # f32, not TF32 (the main path computes in bf16 either way)
+    # f32, not TF32 (the main paths compute in bf16 either way)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -378,28 +701,34 @@ def main() -> int:
         timeout=60, check=True).stdout.strip()
     _emit({"phase": "toolchain", **_toolchain(), "card": smi})
     phase_build()
-    kern = phase_kernels()
-    main_res, eng, batches = phase_main_path()
-    phase_profile(eng, batches)
+    k1 = phase_kernels_k1()
+    k2 = phase_kernels_k2()
+    k3 = phase_kernels_k3()
+    fast, eng, batches = phase_main_path()
+    phase_profile("main_path", eng, batches)
+    del eng
+    parity, eng, batches = phase_main_path_parity()
+    phase_profile("main_path_parity", eng, batches)
 
-    main_cases = [c for c in kern["roi_align"] if not c["edge"]]
-    t_bytes = sum(c["bytes"] for c in main_cases) / HBM_BYTES_PER_S
-    t_ops = sum(c["flops"] for c in main_cases) / F32_FLOPS_PER_S
-    _emit({"kernels": [{
-        "name": "roi_align", "route": "cuda",
-        "source": "roadsurf_tpu_torch/csrc/roi_align.cu",
-        "replaces": "roadsurf_tpu/ops/roi_align_pallas.py:638",
-        "launches": main_res["launches"]["roi_align"],
-        "max_abs_err": max(c["max_abs_err"] for c in kern["roi_align"]),
-        # one forward's pooling: the box and the mask pooler, summed
-        "ms": sum(c["ms"] for c in main_cases),
-        "plain_ms": sum(c["plain_ms"] for c in main_cases),
-        "bound_ms": sum(c["bound_ms"] for c in main_cases),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-        "per_pooler": {c["pooler"]: {k: c[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-            for c in main_cases}}]})
+    # K1 runs on the fast path, K2 and K3 on the parity path; the times
+    # are one forward's calls: both poolers (K1, K2 at its adaptive
+    # sampling), the RPN's and the class NMS (K3)
+    _emit({"kernels": [
+        _record("roi_align", "roadsurf_tpu_torch/csrc/roi_align.cu",
+                "roadsurf_tpu/ops/roi_align_pallas.py:638",
+                fast["launches"]["roi_align"], k1, "max_abs_err", "pooler"),
+        _record("roi_align_blocked",
+                "roadsurf_tpu_torch/csrc/roi_align_blocked.cu",
+                "roadsurf_tpu/ops/roi_align_pallas.py:471",
+                parity["launches"]["roi_align_blocked"], k2, "max_abs_err",
+                "pooler"),
+        # K3's error is the count of keep flags unlike the plain version's
+        _record("nms", "roadsurf_tpu_torch/csrc/nms.cu",
+                "roadsurf_tpu/ops/nms_pallas.py:59",
+                parity["launches"]["nms"],
+                [dict(c, max_abs_err=c["mismatches"]) for c in k3],
+                "max_abs_err", "case"),
+    ]})
     print(smi)
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

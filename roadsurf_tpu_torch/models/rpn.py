@@ -13,6 +13,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.nms import NEG_INF, nms_fixed, nms_sweep, top_k
 from .anchors import apply_deltas, clip_boxes
@@ -94,7 +95,7 @@ def select_proposals(logits: list, deltas: list, anchors: list,
     dev = logits[0].device
     use_gate = local_max_gate and fast_nms and gate_geom is not None
     nms_one = nms_sweep if fast_nms else nms_fixed
-    kept_boxes, kept_scores = [], []
+    level_boxes, level_scores = [], []
     for l, (lg, dl, an) in enumerate(zip(logits, deltas, anchors)):
         if use_gate:
             lg = _local_max_gate(lg, *gate_geom[l], nms_thresh)
@@ -110,15 +111,29 @@ def select_proposals(logits: list, deltas: list, anchors: list,
         # drop degenerate boxes (MIN_SIZE=0 => only empty ones)
         wh_ok = (boxes[..., 2] > boxes[..., 0]) \
             & (boxes[..., 3] > boxes[..., 1])
-        sc = torch.where(wh_ok, sc, torch.full_like(sc, NEG_INF))
-        # boxes on different levels never suppress each other, so
-        # level-aware NMS is exactly per-level NMS + a global top-k over
-        # each level's top-`post_nms_topk` survivors
-        k_out = min(post_nms_topk, k)
-        top_s, keep_i = nms_one(boxes, sc, nms_thresh, k_out)
-        kept_boxes.append(torch.gather(boxes, 1,
-                                       keep_i[..., None].expand(B, k_out, 4)))
-        kept_scores.append(top_s)
+        level_boxes.append(boxes)
+        level_scores.append(torch.where(wh_ok, sc,
+                                        torch.full_like(sc, NEG_INF)))
+    # boxes on different levels never suppress each other, so level-aware
+    # NMS is exactly per-level NMS + a global top-k over each level's
+    # top-`post_nms_topk` survivors. The levels run as one (B, L, k_max)
+    # batch, one NMS call (one kernel launch on the card): each is padded
+    # to the longest with NEG_INF scores, which never suppress and are
+    # never kept, and its k_out ≤ k_l survivors never reach the padding.
+    k_max = max(b.shape[1] for b in level_boxes)
+    boxes = torch.stack([F.pad(b, (0, 0, 0, k_max - b.shape[1]))
+                         for b in level_boxes], dim=1)
+    scores = torch.stack([F.pad(s, (0, k_max - s.shape[1]), value=NEG_INF)
+                          for s in level_scores], dim=1)
+    top_s, keep_i = nms_one(boxes, scores, nms_thresh,
+                            min(post_nms_topk, k_max))     # (B, L, k_out)
+    kept_boxes, kept_scores = [], []
+    for l, b in enumerate(level_boxes):
+        k_out = min(post_nms_topk, b.shape[1])
+        idx = keep_i[:, l, :k_out]
+        kept_boxes.append(torch.gather(b, 1,
+                                       idx[..., None].expand(B, k_out, 4)))
+        kept_scores.append(top_s[:, l, :k_out])
     boxes = torch.cat(kept_boxes, dim=1)
     scores = torch.cat(kept_scores, dim=1)
     pscores, top_i = top_k(scores, post_nms_topk)

@@ -1,16 +1,19 @@
-"""Fixed-shape non-maximum suppression, plain PyTorch.
+"""Fixed-shape non-maximum suppression.
 
 Port of the reference's XLA designs (ops/nms.py there): everything is
 padded to static shapes and invalid entries carry score ``NEG_INF``. Every
 function takes boxes ``(..., N, 4)`` and scores ``(..., N)`` with any
 leading batch dims (the reference vmaps its per-image form).
 
-* :func:`nms_fixed` — exact greedy semantics as the Jacobi fixpoint of the
-  score-rank recursion (identical keep set to the sequential scan);
+* :func:`nms_fixed` — exact greedy semantics: a stable descending sort,
+  the greedy keep mask for every problem of the leading dims at once
+  (``ops/nms_kernel.py``, the port of the reference's TPU kernel
+  ``nms_keep_mask``: one kernel launch on CUDA tensors, its plain Jacobi
+  form on CPU tensors), the mask scattered back to input order;
 * :func:`nms_sweep` — single sweep: a box is kept iff no higher-priority
   valid box overlaps it. The fast profile uses it.
 
-Both keep the reference's divisionless overlap test ``inter > t·union`` and
+All keep the reference's divisionless overlap test ``inter > t·union`` and
 its score-then-index priority, and :func:`top_k` breaks ties toward the
 lower index as ``jax.lax.top_k`` does — so keep indices match exactly,
 including the padded slots whose gathered boxes flow downstream.
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-NEG_INF = -1e10
+from .nms_kernel import NEG_INF, nms_keep_mask
+from .nms_kernel import overlap as _overlap
 
 
 def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -30,19 +34,6 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     ``NEG_INF``."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
-
-
-def _overlap(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
-    """(..., N, N) bool: iou(i, j) > t, tested as inter > t·union (union ≥
-    0, and union = 0 ⇒ inter = 0)."""
-    areas = (boxes[..., 2] - boxes[..., 0]).clamp(min=0) \
-        * (boxes[..., 3] - boxes[..., 1]).clamp(min=0)
-    lt = torch.maximum(boxes[..., :, None, :2], boxes[..., None, :, :2])
-    rb = torch.minimum(boxes[..., :, None, 2:], boxes[..., None, :, 2:])
-    wh = (rb - lt).clamp(min=0)
-    inter = wh[..., 0] * wh[..., 1]
-    union = areas[..., :, None] + areas[..., None, :] - inter
-    return inter > iou_thresh * union
 
 
 def _higher(scores: torch.Tensor) -> torch.Tensor:
@@ -61,28 +52,26 @@ def _kept_top(keep, scores, max_out):
     return top_k(kept, max_out)
 
 
+def keep_sorted(boxes: torch.Tensor, scores: torch.Tensor,
+                iou_thresh: float) -> torch.Tensor:
+    """Greedy keep mask (..., N) in input order: a stable descending sort,
+    :func:`~.nms_kernel.nms_keep_mask` over every problem of the leading
+    dims at once (the kernel on CUDA tensors, its plain Jacobi form on CPU
+    tensors), and the mask scattered back to input order."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    sboxes = torch.gather(boxes, -2, order[..., None].expand(boxes.shape))
+    keep = nms_keep_mask(sboxes.contiguous(),
+                         torch.gather(scores, -1, order).contiguous(),
+                         iou_thresh)
+    return torch.zeros_like(keep).scatter_(-1, order, keep)
+
+
 def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
               max_out: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact greedy NMS. Returns (keep_scores, keep_idx) of length max_out:
-    kept scores (suppressed/padded slots at NEG_INF) and their indices.
-
-    The greedy keep set is the unique fixpoint of
-        keep[i] = ¬∃j: rank(j) < rank(i) ∧ keep[j] ∧ iou(i, j) > t;
-    Jacobi-iterating it from keep=all converges in suppression-chain-depth
-    sweeps. Each sweep reads the result back to test convergence (one
-    host sync per sweep): the fast profile never calls this form.
-    """
-    # M[i, j]: j (if kept) suppresses i
-    M = _overlap(boxes, iou_thresh) \
-        & _higher(scores).transpose(-1, -2) \
-        & (scores > NEG_INF / 2)[..., None, :]
-    keep = torch.ones_like(scores, dtype=torch.bool)
-    while True:
-        new = ~(M & keep[..., None, :]).any(dim=-1)
-        if torch.equal(new, keep):
-            break
-        keep = new
-    return _kept_top(keep, scores, max_out)
+    kept scores (suppressed/padded slots at NEG_INF) and their indices."""
+    return _kept_top(keep_sorted(boxes, scores, iou_thresh), scores,
+                     max_out)
 
 
 def nms_sweep(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,

@@ -1,11 +1,20 @@
 """Multilevel RoIAlign (ROIAlignV2 semantics): level assignment and the
-dispatcher between the Hopper kernel and its plain PyTorch version.
+dispatcher between the two Hopper kernels and their plain PyTorch versions.
 
 Semantics (reference ops/roi_align.py, detectron2_config_3bands.yaml:174,
-221): aligned=True half-pixel sampling at a fixed s×s grid per bin, a
-sample counts iff its coordinate lies in [−1, dim] and is then clamped to
-the border, and each box pools from the level of the canonical 224 /
-level-4 rule, clipped to the levels a box of this image can reach.
+221): aligned=True half-pixel sampling, at a fixed s×s grid per bin or,
+for ``sampling == 0``, adaptively at n = ceil(bin cells) samples per bin
+and axis; a sample counts iff its coordinate lies in [−1, dim] and is then
+clamped to the border, and each box pools from the level of the canonical
+224 / level-4 rule, clipped to the levels a box of this image can reach.
+
+Routing follows the reference's dispatcher (ops/roi_align.py:491-529):
+fixed sampling on maps of at most 160² cells at P2 goes to
+``roi_align_fused`` (K1); everything else, adaptive sampling at any size
+and fixed sampling on large maps, to ``roi_align_fused_blocked`` (K2). The
+reference sends adaptive sampling on small maps to its XLA path; K2
+computes the same function. Each wrapper launches its kernel on CUDA
+tensors and runs its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,11 +22,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .roi_align_blocked_kernel import roi_align_fused_blocked, \
+    roi_align_fused_blocked_ref
 from .roi_align_kernel import roi_align_fused, roi_align_fused_ref
 
-ADAPTIVE_SAMPLING_ITEM = (
-    "ROADMAP.md Queue B: roi_align_fused_blocked (K2, adaptive "
-    "POOLER_SAMPLING_RATIO 0 with the 800 px parity profile)")
+# P2 maps up to this many cells go to K1 at fixed sampling (the
+# reference's _MATMUL_PATH_MAX_HW)
+SMALL_MAP_HW = 160 * 160
 
 
 def level_assignment(boxes: torch.Tensor, canonical_size: int,
@@ -44,14 +55,7 @@ def reachable_levels(feats: list, canonical_size: int = 224,
     return min(len(feats), max(1, top - min_level + 1))
 
 
-def _levels(feats, boxes, sampling, canonical_size, canonical_level,
-            min_level):
-    if sampling <= 0:
-        # checked before any device branch: the adaptive pooler is never
-        # stood in for by the fixed-sampling kernel or the plain version
-        raise NotImplementedError(
-            f"adaptive pooler sampling (sampling={sampling}) is not ported;"
-            f" see {ADAPTIVE_SAMPLING_ITEM}")
+def _levels(feats, boxes, canonical_size, canonical_level, min_level):
     n_lev = reachable_levels(feats, canonical_size, canonical_level,
                              min_level)
     feats = tuple(feats[:n_lev])
@@ -60,20 +64,30 @@ def _levels(feats, boxes, sampling, canonical_size, canonical_level,
     return feats, lvl.contiguous()
 
 
+def uses_blocked(feats, sampling: int) -> bool:
+    """True where the pooling goes to K2 (``roi_align_fused_blocked``):
+    adaptive sampling, or a P2 map larger than ``SMALL_MAP_HW``."""
+    return sampling == 0 \
+        or feats[0].shape[1] * feats[0].shape[2] > SMALL_MAP_HW
+
+
 def roi_align_multilevel(feats: list, boxes: torch.Tensor, out_size: int,
                          sampling: int = 2, canonical_size: int = 224,
                          canonical_level: int = 4,
                          min_level: int = 2) -> torch.Tensor:
     """feats: [P2..P5] NHWC (B, H, W, C); boxes: (B, R, 4) XYXY f32 in image
     coordinates. Returns (B, R, out_size, out_size, C) in the feature dtype.
+    ``sampling == 0`` is adaptive.
 
-    On CUDA tensors this launches the Hopper kernel
-    (ops/roi_align_kernel.py); on CPU tensors it runs the kernel's plain
-    version. ``sampling == 0`` raises on every device."""
-    feats, lvl = _levels(feats, boxes, sampling, canonical_size,
-                         canonical_level, min_level)
-    return roi_align_fused(feats, boxes.contiguous(), lvl, out_size,
-                           sampling, min_level)
+    On CUDA tensors this launches K1 or K2 (see the module docstring); on
+    CPU tensors it runs the chosen kernel's plain version."""
+    if sampling < 0:
+        raise ValueError(f"sampling must be >= 0, got {sampling}")
+    fn = roi_align_fused_blocked if uses_blocked(feats, sampling) \
+        else roi_align_fused
+    feats, lvl = _levels(feats, boxes, canonical_size, canonical_level,
+                         min_level)
+    return fn(feats, boxes.contiguous(), lvl, out_size, sampling, min_level)
 
 
 def roi_align_multilevel_ref(feats: list, boxes: torch.Tensor,
@@ -81,9 +95,10 @@ def roi_align_multilevel_ref(feats: list, boxes: torch.Tensor,
                              canonical_size: int = 224,
                              canonical_level: int = 4,
                              min_level: int = 2) -> torch.Tensor:
-    """The plain version on any device, float32 out (the reference's
-    separable path)."""
-    feats, lvl = _levels(feats, boxes, sampling, canonical_size,
-                         canonical_level, min_level)
-    return roi_align_fused_ref(feats, boxes, lvl, out_size, sampling,
-                               min_level)
+    """The plain version of the same route on any device, float32 out (the
+    reference's separable path)."""
+    fn = roi_align_fused_blocked_ref if uses_blocked(feats, sampling) \
+        else roi_align_fused_ref
+    feats, lvl = _levels(feats, boxes, canonical_size, canonical_level,
+                         min_level)
+    return fn(feats, boxes, lvl, out_size, sampling, min_level)

@@ -27,20 +27,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "roi_align.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+from . import cuda_build
+
 MAX_LEVELS = 4
 MAX_SAMPLING = 16
 MAX_TAPS = 256          # out_size · sampling per axis (shared-memory table)
@@ -50,7 +41,12 @@ def _axis_weight_matrix(lo, bin_size, dim: int, stride: float,
                         out_size: int, sampling: int) -> torch.Tensor:
     """Per-box interpolation matrix along one axis, (B, R, out_size, dim):
     ``w(d) = Σ_s valid_s · max(0, 1 − |clamp(c_s) − d|) / sampling``, the
-    tent form of the bilinear taps (reference ops/roi_align.py:75-103)."""
+    tent form of the bilinear taps (reference ops/roi_align.py:75-103).
+    ``sampling == 0`` gives the adaptive weights."""
+    if sampling == 0:
+        d = torch.arange(dim, dtype=torch.float32, device=lo.device)
+        return _axis_weights_adaptive_at(lo, bin_size, d, dim, stride,
+                                         out_size)
     p = torch.arange(out_size, dtype=torch.float32, device=lo.device)
     d = torch.arange(dim, dtype=torch.float32, device=lo.device)
     m = torch.zeros(lo.shape + (out_size, dim), dtype=torch.float32,
@@ -65,14 +61,81 @@ def _axis_weight_matrix(lo, bin_size, dim: int, stride: float,
     return m / sampling
 
 
+def _axis_weights_adaptive_at(lo, bin_size, d, dim: int, stride: float,
+                              out_size: int) -> torch.Tensor:
+    """Exact POOLER_SAMPLING_RATIO=0 weights in closed form, uncapped, at
+    the cell positions ``d`` (1-D float tensor), (B, R, out_size, len(d));
+    a copy of the reference's ``_axis_weights_adaptive_at``
+    (roadsurf_tpu/ops/roi_align.py:113-186) for scalar ``dim``/``stride``.
+
+    A bin of ``bins`` cells holds n = ceil(bins) samples at spacing
+    δ = bins/n, so the tent sum ``Σ_i max(0, 1 − |clamp(c_i) − d|)`` at a
+    cell sums a piecewise-linear function over an arithmetic progression:
+    each linear piece is a closed-form series, whatever n is. Samples in
+    [−1, 0) and (dim−1, dim] collapse onto the edge cells with weight 1
+    (the corrections on cells 0 and dim−1); zero-size bins (δ = 0) take
+    the guarded spacing 1 with A shifted so the one sample stays put.
+    ``csrc/roi_align_blocked.cu`` evaluates the same operations in the same
+    order, one cell at a time; keep the two in step."""
+    p = torch.arange(out_size, dtype=torch.float32, device=lo.device)
+    dim = float(dim)
+    bins = bin_size[..., None] / stride                       # (B, R, 1)
+    n = torch.ceil(bins).clamp(min=1.0)
+    delta_t = bins / n                                        # true spacing
+    delta = torch.where(delta_t > 0, delta_t, torch.ones_like(delta_t))
+    # c_i = A + (i + 0.5)·delta reproduces the true samples
+    A = (lo[..., None] + p * bin_size[..., None]) / stride - 0.5 \
+        + 0.5 * (delta_t - delta)                             # (B, R, P)
+    A = A[..., None]                                          # (B, R, P, 1)
+    nn = n[..., None]                                         # (B, R, 1, 1)
+    dl = delta[..., None]
+
+    def t(x):
+        # i-coordinate of position x: c_i <= x  <=>  i <= t(x)
+        return (x - A) / dl - 0.5
+
+    def series(i0, i1):
+        """(count, Σ c_i) over integer i ∈ [i0, i1] ∩ [0, n−1]."""
+        i0c = i0.clamp(min=0.0)
+        i1c = torch.minimum(i1, nn - 1.0)
+        m = (i1c - i0c + 1.0).clamp(min=0.0)
+        si = 0.5 * (i0c + i1c) * m
+        return m, torch.where(m > 0, m * (A + 0.5 * dl) + dl * si, 0.0)
+
+    # window (d−1, d]: tent rises, weight c − (d−1)
+    hi1 = torch.floor(t(d))
+    m1, s1 = series(torch.floor(t(d - 1.0)) + 1.0, hi1)
+    part1 = s1 - m1 * (d - 1.0)
+    # window (d, d+1]: tent falls, weight (d+1) − c
+    m2, s2 = series(hi1 + 1.0, torch.floor(t(d + 1.0)))
+    part2 = m2 * (d + 1.0) - s2
+    # valid samples beyond the edges weigh 1 on the edge cell
+    mb0, sb0 = series(torch.ceil(t(-1.0)), torch.ceil(t(0.0)) - 1.0)
+    corr0 = mb0 - (sb0 + mb0)
+    mbt, sbt = series(torch.floor(t(dim - 1.0)) + 1.0, torch.floor(t(dim)))
+    corrt = sbt - mbt * (dim - 1.0)
+    w = part1 + part2
+    w = w + torch.where(d == 0.0, corr0, 0.0)
+    w = w + torch.where(d == dim - 1.0, corrt, 0.0)
+    return torch.where((d >= 0.0) & (d <= dim - 1.0), w / nn, 0.0)
+
+
+def bin_sizes(boxes: torch.Tensor, out_size: int):
+    """(x0, y0, bin width, bin height) per box, float32. The division is by
+    a tensor: on the card a division by a Python number is a product with
+    its rounded reciprocal, and the kernels divide exactly."""
+    boxes = boxes.float()
+    k = torch.tensor(float(out_size), device=boxes.device)
+    return (boxes[..., 0], boxes[..., 1],
+            (boxes[..., 2] - boxes[..., 0]) / k,
+            (boxes[..., 3] - boxes[..., 1]) / k)
+
+
 def axis_weights(feats, boxes, lvl, out_size: int, sampling: int,
                  min_level: int):
     """Per level: (wy (B, R, P, H_l) with other-level boxes zeroed,
-    wx (B, R, P, W_l)), float32."""
-    boxes = boxes.float()
-    x0, y0 = boxes[..., 0], boxes[..., 1]
-    bw = (boxes[..., 2] - boxes[..., 0]) / out_size
-    bh = (boxes[..., 3] - boxes[..., 1]) / out_size
+    wx (B, R, P, W_l)), float32; ``sampling == 0`` is adaptive."""
+    x0, y0, bw, bh = bin_sizes(boxes, out_size)
     out = []
     for li, f in enumerate(feats):
         H, W = f.shape[1], f.shape[2]
@@ -98,52 +161,26 @@ def roi_align_fused_ref(feats, boxes, lvl, out_size: int, sampling: int,
     return acc
 
 
-def nvcc_path() -> str:
-    path = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(f"nvcc not found (looked on PATH and at {path})")
-    return path
-
-
-def build() -> dict:
-    """Compile ``csrc/roi_align.cu`` into ``_build/`` unless a library of
-    the same source and flags is there. Returns {"path", "seconds",
-    "cached", "log"} (``log``: nvcc's output, with ptxas's register and
-    spill counts)."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"roi_align_{key[:16]}.so"
-    if lib.exists():
-        return {"path": str(lib), "seconds": 0.0, "cached": True, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return {"path": str(lib), "seconds": seconds, "cached": False,
-            "log": proc.stdout + proc.stderr}
+# the C interface of csrc/roi_align.cu and csrc/roi_align_blocked.cu: level
+# pointers, level sides, n_levels, min_level, boxes, lvl, out, B, R, C, P,
+# sampling, device, stream
+POOLER_ARGTYPES = ([ctypes.c_void_p] * MAX_LEVELS
+                   + [ctypes.c_int] * (2 * MAX_LEVELS + 2)
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.roi_align_bf16.argtypes = ([vp] * MAX_LEVELS + [i] * (2 * MAX_LEVELS)
-                                   + [i, i, vp, vp, vp, i, i, i, i, i, i,
-                                      vp])
-    lib.roi_align_bf16.restype = i
-    lib.roi_align_error_string.argtypes = [i]
-    lib.roi_align_error_string.restype = ctypes.c_char_p
+    lib = cuda_build.library("roi_align")
+    lib.roi_align_bf16.argtypes = POOLER_ARGTYPES
+    lib.roi_align_bf16.restype = ctypes.c_int
     return lib
 
 
-def _check(feats, boxes, lvl, out_size, sampling):
+def check_pooler_inputs(feats, boxes, lvl):
+    """The checks both pooler kernels (K1 here, K2 in
+    ``roi_align_blocked_kernel.py``) make of their inputs."""
     if not 1 <= len(feats) <= MAX_LEVELS:
         raise ValueError(f"1..{MAX_LEVELS} levels expected, got {len(feats)}")
     B, R = boxes.shape[:2]
@@ -168,6 +205,35 @@ def _check(feats, boxes, lvl, out_size, sampling):
             or lvl.device != dev or not lvl.is_contiguous():
         raise ValueError("lvl must be contiguous int32 (B, R) on the "
                          "boxes' device")
+
+
+def launch_pooler(wrapper, name: str, entry, feats, boxes, lvl,
+                  out_size: int, sampling: int, min_level: int):
+    """Allocate the (B, R, P, P, C) bf16 output and launch ``entry`` of
+    ``csrc/<name>.cu`` (``POOLER_ARGTYPES``) on the current stream; raise
+    if the launch failed, else count it on ``wrapper``. Inputs checked."""
+    B, R = boxes.shape[:2]
+    C = feats[0].shape[-1]
+    out = torch.empty((B, R, out_size, out_size, C), dtype=torch.bfloat16,
+                      device=boxes.device)
+    if out.numel() == 0:
+        return out
+    n = len(feats)
+    ptrs = [f.data_ptr() for f in feats] + [None] * (MAX_LEVELS - n)
+    dims = []
+    for li in range(MAX_LEVELS):
+        dims += [feats[li].shape[1], feats[li].shape[2]] if li < n else [0, 0]
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    rc = entry(*ptrs, *dims, n, min_level, boxes.data_ptr(), lvl.data_ptr(),
+               out.data_ptr(), B, R, C, out_size, sampling,
+               boxes.device.index, stream)
+    cuda_build.check(name, rc, name)
+    wrapper.launches += 1
+    return out
+
+
+def _check(feats, boxes, lvl, out_size, sampling):
+    check_pooler_inputs(feats, boxes, lvl)
     if not (1 <= sampling <= MAX_SAMPLING
             and 1 <= out_size * sampling <= MAX_TAPS):
         raise ValueError(f"unsupported out_size={out_size}, "
@@ -186,27 +252,9 @@ def roi_align_fused(feats, boxes, lvl, out_size: int, sampling: int,
     if boxes.device.type != "cuda":
         raise ValueError(f"no roi_align for {boxes.device.type} tensors")
     _check(feats, boxes, lvl, out_size, sampling)
-    B, R = boxes.shape[:2]
-    C = feats[0].shape[-1]
-    out = torch.empty((B, R, out_size, out_size, C), dtype=torch.bfloat16,
-                      device=boxes.device)
-    if out.numel() == 0:
-        return out
-    n = len(feats)
-    ptrs = [f.data_ptr() for f in feats] + [None] * (MAX_LEVELS - n)
-    dims = []
-    for li in range(MAX_LEVELS):
-        dims += [feats[li].shape[1], feats[li].shape[2]] if li < n else [0, 0]
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    rc = _library().roi_align_bf16(
-        *ptrs, *dims, n, min_level, boxes.data_ptr(), lvl.data_ptr(),
-        out.data_ptr(), B, R, C, out_size, sampling, boxes.device.index,
-        stream)
-    if rc != 0:
-        raise RuntimeError("roi_align kernel launch failed: "
-                           + _library().roi_align_error_string(rc).decode())
-    roi_align_fused.launches += 1
-    return out
+    return launch_pooler(roi_align_fused, "roi_align",
+                         _library().roi_align_bf16, feats, boxes, lvl,
+                         out_size, sampling, min_level)
 
 
 roi_align_fused.launches = 0

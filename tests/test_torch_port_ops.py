@@ -41,7 +41,7 @@ def _t(a):
 # ---------------------------------------------------------------------------
 # anchors and box math
 
-@pytest.mark.parametrize("S", [64, 256])
+@pytest.mark.parametrize("S", [64, 256, 800])
 def test_anchors_exactly_equal(S):
     cfg = fast_profile()
     ref = janchors.all_level_anchors(S, cfg.fpn_strides, cfg.anchor_sizes,
@@ -49,6 +49,10 @@ def test_anchors_exactly_equal(S):
     got = tanchors.all_level_anchors(S, cfg.fpn_strides, cfg.anchor_sizes,
                                      cfg.anchor_aspect_ratios)
     assert len(got) == len(ref)
+    if S == 800:
+        # the parity profile's levels: P2..P5 at 200..25, P6 at 13x13
+        assert [len(g) for g in got] == [3 * s * s
+                                         for s in (200, 100, 50, 25, 13)]
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype
         np.testing.assert_array_equal(g, r)

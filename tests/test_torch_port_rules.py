@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that hold whatever the numbers: it imports
 nothing of JAX or of the JAX package, its entry points need a card unless
-the caller asks for the CPU, and the adaptive pooler is refused rather than
-stood in for."""
+the caller asks for the CPU, the dispatcher routes each pooling to the
+kernel the reference routes it to, and the kernel wrappers refuse what
+their kernels do not take."""
 
 import ast
 import os
@@ -103,21 +104,48 @@ def test_int8_configs_are_refused(state_and_cfg):
                               replace(cfg, **knob), device="cpu")
 
 
-def test_adaptive_sampling_is_refused_before_any_device_branch(monkeypatch):
-    """sampling == 0 raises on the dispatcher's path, naming the ROADMAP
-    item, before the kernel wrapper (or its plain version) is reached."""
-    def must_not_run(*a, **k):
-        raise AssertionError("pooler reached")
+def test_dispatcher_routes_fixed_small_maps_to_k1_and_the_rest_to_k2(
+        monkeypatch):
+    """sampling > 0 on maps of at most 160² cells at P2 reaches K1's
+    wrapper; sampling == 0 at any size, and fixed sampling on larger maps,
+    reach K2's (the reference's dispatcher, ops/roi_align.py:491-529). On
+    CPU tensors each wrapper runs its plain version: no launch."""
+    from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import \
+        roi_align_fused_blocked
 
-    monkeypatch.setattr(tra, "roi_align_fused", must_not_run)
-    monkeypatch.setattr(tra, "roi_align_fused_ref", must_not_run)
-    feats = [torch.zeros((1, 64 // 2 ** i, 64 // 2 ** i, 4))
-             for i in range(3)]
-    boxes = torch.zeros((1, 2, 4))
-    for fn in (tra.roi_align_multilevel, tra.roi_align_multilevel_ref):
-        with pytest.raises(NotImplementedError,
-                           match="roi_align_fused_blocked"):
-            fn(feats, boxes, 7, sampling=0)
+    calls = []
+
+    def recorder(name, fn):
+        def wrapped(feats, boxes, lvl, out_size, sampling, min_level):
+            calls.append((name, feats[0].shape[1], sampling))
+            return fn(feats, boxes, lvl, out_size, sampling, min_level)
+        return wrapped
+
+    monkeypatch.setattr(tra, "roi_align_fused",
+                        recorder("K1", tra.roi_align_fused))
+    monkeypatch.setattr(tra, "roi_align_fused_blocked",
+                        recorder("K2", tra.roi_align_fused_blocked))
+
+    def pyramid(side):
+        return [torch.ones((1, side // 2 ** i, side // 2 ** i, 2))
+                for i in range(4)]
+
+    boxes = torch.tensor([[[0.0, 0.0, 40.0, 30.0], [8.0, 4.0, 9.0, 70.0]]])
+    before = (roi_align_fused.launches, roi_align_fused_blocked.launches)
+    for side, sampling, want in ((64, 2, "K1"), (160, 2, "K1"),
+                                 (64, 0, "K2"), (161, 2, "K2"),
+                                 (200, 0, "K2"), (200, 2, "K2")):
+        calls.clear()
+        out = tra.roi_align_multilevel(pyramid(side), boxes, 7,
+                                       sampling=sampling)
+        assert calls == [(want, side, sampling)]
+        assert out.shape == (1, 2, 7, 7, 2)
+        # a constant map pools to its constant, whichever route
+        torch.testing.assert_close(out, torch.ones_like(out))
+    assert (roi_align_fused.launches, roi_align_fused_blocked.launches) \
+        == before
+    with pytest.raises(ValueError, match="sampling"):
+        tra.roi_align_multilevel(pyramid(64), boxes, 7, sampling=-1)
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
@@ -144,3 +172,58 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         _check(feats * 3, boxes, lvl, 7, 2)
     assert roi_align_fused.launches == 0
+
+
+def test_blocked_kernel_wrapper_rejects_what_the_kernel_does_not_take():
+    """K2's checks on meta tensors: as K1's, plus sampling 0 (adaptive)
+    taken, and out sizes or level sides whose weight tables overflow a
+    block's shared memory refused."""
+    from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import _check, \
+        roi_align_fused_blocked
+
+    B, R, C = 2, 4, 8
+    feats = tuple(torch.empty((B, s, s, C), dtype=torch.bfloat16,
+                              device="meta") for s in (200, 100, 50, 25))
+    boxes = torch.empty((B, R, 4), device="meta")
+    lvl = torch.empty((B, R), dtype=torch.int32, device="meta")
+    for P, s in ((7, 0), (14, 0), (7, 2)):
+        _check(feats, boxes, lvl, P, s)
+    with pytest.raises(TypeError):
+        _check(tuple(f.float() for f in feats), boxes, lvl, 7, 0)
+    with pytest.raises(ValueError):
+        _check((feats[0].permute(0, 2, 1, 3),), boxes, lvl, 7, 0)
+    with pytest.raises(ValueError):
+        _check(feats, boxes, lvl.long(), 7, 0)
+    with pytest.raises(ValueError):
+        _check(feats, boxes.double(), lvl, 7, 0)
+    with pytest.raises(ValueError):
+        _check(feats, boxes, lvl, 7, -1)
+    with pytest.raises(ValueError):
+        _check(feats, boxes, lvl, 33, 0)
+    with pytest.raises(ValueError):
+        _check(feats * 2, boxes, lvl, 7, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        _check((torch.empty((B, 200, 4000, C), dtype=torch.bfloat16,
+                            device="meta"),), boxes, lvl, 14, 0)
+    assert roi_align_fused_blocked.launches == 0
+
+
+def test_nms_kernel_wrapper_rejects_what_the_kernel_does_not_take():
+    from roadsurf_tpu_torch.ops.nms_kernel import MAX_N, _check, \
+        nms_keep_mask
+
+    boxes = torch.empty((2, 5, 1000, 4), device="meta")
+    scores = torch.empty((2, 5, 1000), device="meta")
+    _check(boxes, scores)
+    with pytest.raises(TypeError):
+        _check(boxes.half(), scores)
+    with pytest.raises(ValueError):
+        _check(boxes[..., :3], scores)
+    with pytest.raises(ValueError):
+        _check(boxes, scores[..., :999])
+    with pytest.raises(ValueError):
+        _check(boxes.transpose(0, 1), scores.transpose(0, 1))
+    with pytest.raises(ValueError, match="fit a block"):
+        _check(torch.empty((1, MAX_N + 1, 4), device="meta"),
+               torch.empty((1, MAX_N + 1), device="meta"))
+    assert nms_keep_mask.launches == 0
