@@ -15,10 +15,14 @@ exits non-zero:
    256 px tiles; box R=32 P=7, mask R=8 P=14, s=2). K2
    (``roi_align_blocked``): the parity profile's poolers (B=16, C=256,
    P2..P5 at 800 px; box R=1000 P=7, mask R=100 P=14, adaptive) and the
-   box pooler at s=2. K3 (``nms``): the parity profile's NMS problems
-   (RPN: 16·5 problems of 1000 boxes at t=0.7; classes: 16 problems of
-   2000 boxes at t=0.5), suppression chains, equal scores and all-padded
-   problems, held equal bit for bit.
+   box pooler at s=2. Both poolers also in their int8 mode, at the same
+   shapes, on int8 levels quantized from those (one scale a level). K3
+   (``nms``): the parity profile's NMS problems (RPN: 16·5 problems of
+   1000 boxes at t=0.7; classes: 16 problems of 2000 boxes at t=0.5),
+   suppression chains, equal scores and all-padded problems, held equal
+   bit for bit. K4 (``int8_gemm``): the fast profile's backbone 1x1 convs
+   at B=64 and box FC1 as GEMMs, raw and with the bf16 and int8
+   epilogues, each held equal bit for bit, beside ``torch._int_mm``.
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
    64 random 256 px tiles, the last one short; K1 must have been launched
@@ -34,6 +38,15 @@ exits non-zero:
    over batches of random 256 px tiles, the last one short, with the same
    checks; K2 and K3 must have been launched twice per batch each.
 6. ``profile`` of the parity path.
+7. ``main_path_int8``: the reference's deployment configuration, the one
+   ``bench.py`` runs by default — the fast profile with ``int8_scope
+   "full"`` and ``int8_pyramid`` — calibrated by the port's
+   ``prepare_quantized`` on 8 random 256 px tiles, through the engine at
+   B=64 with the same checks; K1 must have run twice a batch in its int8
+   mode and never in its bf16 mode. Then its ``profile``.
+8. ``main_path_parity_int8``: the parity profile with the same int8
+   settings (B=16, bits); K2 twice a batch in its int8 mode, K3 twice.
+   Then its ``profile``.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -54,6 +67,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores (data sheet)
 # |kernel - plain| <= 2^-8·|plain| + 1e-4, for K1 and K2: one bf16 rounding
 # of the output (half an ulp, at most 2^-9 relative) over f32 sums taken in
 # another order (K1 (wy·wx)·f per tap, K2 wy·Σ wx·f per row, the plain
@@ -73,6 +87,16 @@ PPOOLERS = (("box", 1000, 7, 0), ("mask", 100, 14, 0),
 ROOT = os.path.dirname(os.path.abspath(__file__))
 YAML = "config/detectron2_config_3bands.yaml"
 PAIR_FLOPS = 12                 # f32 operations of one NMS pair test
+# K4: the fast profile's backbone 1x1 convs at B=64 as (M = 64·H·W, K, N)
+# GEMMs (scripts/bench_int8_gemm.py:46-52 at batch 64) and box FC1
+GEMMS = (("C2 1x1 256>64", B * 64 * 64, 256, 64),
+         ("C3 1x1 512>128", B * 32 * 32, 512, 128),
+         ("C3 1x1 128>512", B * 32 * 32, 128, 512),
+         ("C4 1x1 1024>256", B * 16 * 16, 1024, 256),
+         ("C4 1x1 256>1024", B * 16 * 16, 256, 1024),
+         ("C5 1x1 2048>512", B * 8 * 8, 2048, 512),
+         ("boxFC1", B * 32, 7 * 7 * C, 1024))
+INT8 = {"int8_scope": "full", "int8_pyramid": True}
 
 
 def _require(cond: bool, msg: str):
@@ -99,31 +123,41 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes: float, flops: float) -> dict:
+def _bound(nbytes: float, flops: float, peak: float = F32_FLOPS_PER_S
+           ) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ops_ms": t_ops, "bytes_ms": t_bytes}
 
 
-def _counters():
+def _counters() -> dict:
+    """{count name: (wrapper, attribute)}: each wrapper counts its launches,
+    the poolers per mode."""
+    from roadsurf_tpu_torch.ops.int8_gemm import int8_gemm
     from roadsurf_tpu_torch.ops.nms_kernel import nms_keep_mask
     from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import \
         roi_align_fused_blocked
     from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused
 
-    return {"roi_align": roi_align_fused,
-            "roi_align_blocked": roi_align_fused_blocked,
-            "nms": nms_keep_mask}
+    return {"roi_align": (roi_align_fused, "launches"),
+            "roi_align_int8": (roi_align_fused, "launches_int8"),
+            "roi_align_blocked": (roi_align_fused_blocked, "launches"),
+            "roi_align_blocked_int8": (roi_align_fused_blocked,
+                                       "launches_int8"),
+            "nms": (nms_keep_mask, "launches"),
+            "int8_gemm": (int8_gemm, "launches")}
 
 
 def _reset_counts():
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -242,15 +276,27 @@ def _parity_pool_inputs(g, R: int, edge: bool):
     return feats, boxes.contiguous()
 
 
+def _quantized(feats):
+    """int8 levels quantized from ``feats`` (one scale a level, max|f|/127,
+    as the calibration sets them) and the float32 scales."""
+    scales = torch.stack([f.float().abs().amax() / 127.0 for f in feats])
+    q = tuple(torch.round(f.float() / s).clamp(-127, 127).to(torch.int8)
+              for f, s in zip(feats, scales))
+    return q, scales.contiguous()
+
+
 def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
     """(bytes, FLOPs) a pooling call needs: the feature cells its boxes'
-    taps touch (each read once), boxes and levels read, the output
-    written. FLOPs: K1's form (``per_tap``) does 2 per tap of each valid
-    sample and channel; K2's separable form, for each output bin (p, q)
-    and channel, 2 per cell of row p's non-zero y-weights times column
-    q's non-zero x-weights, and 2 per non-zero y-weight."""
+    taps touch (each read once, at the levels' element size), boxes and
+    levels read, the bf16 output written. FLOPs: K1's form (``per_tap``)
+    does 2 per tap of each valid sample and channel; K2's separable form,
+    for each output bin (p, q) and channel, 2 per cell of row p's non-zero
+    y-weights times column q's non-zero x-weights, and 2 per non-zero
+    y-weight; int8 levels add 1 per touched cell and channel (its
+    dequantization)."""
     from roadsurf_tpu_torch.ops.roi_align_kernel import axis_weights
 
+    item = feats[0].element_size()
     nbytes = boxes.numel() * 4 + lvl.numel() * 4 \
         + boxes.shape[0] * boxes.shape[1] * P * P * C * 2
     flops = 0.0
@@ -262,7 +308,9 @@ def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
             cols = ((wx > 0).any(dim=2)
                     & (wy > 0).any(dim=(2, 3))[..., None]).float()
             touched = torch.einsum("brh,brw->bhw", rows, cols) > 0
-            nbytes += int(touched.sum()) * C * 2
+            nbytes += int(touched.sum()) * C * item
+            if feats[0].dtype == torch.int8:
+                flops += float(touched.sum()) * C
             if per_tap:
                 # a valid sample's taps sum to 1/s on its axis
                 ny = torch.round(wy.sum(-1) * s)               # (1, R, P)
@@ -277,72 +325,80 @@ def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
 
 
 def _pool_case(kernel, plain, feats, boxes, P, s, plain_iters: int,
-               per_tap: bool, **meta) -> dict:
+               per_tap: bool, int8: bool, **meta) -> dict:
+    """One pooler call against its plain version, on ``feats`` or, with
+    ``int8``, on int8 levels quantized from them."""
     from roadsurf_tpu_torch.ops.roi_align import level_assignment, \
         reachable_levels
 
     n_lev = reachable_levels(feats)
     lvl = level_assignment(boxes, 224, 4, 2, 2 + n_lev - 1).contiguous()
-    got = kernel(feats, boxes, lvl, P, s)
-    ref = plain(feats, boxes, lvl, P, s)
+    scales = None
+    if int8:
+        feats, scales = _quantized(feats)
+    got = kernel(feats, boxes, lvl, P, s, feat_scales=scales)
+    ref = plain(feats, boxes, lvl, P, s, feat_scales=scales)
     torch.cuda.synchronize()
-    case = {**meta, "R": boxes.shape[1], "P": P, "sampling": s, "C": C,
-            "B": boxes.shape[0], "levels": [f.shape[1] for f in feats],
+    case = {**meta, "mode": "int8" if int8 else "bf16", "R": boxes.shape[1],
+            "P": P, "sampling": s, "C": C, "B": boxes.shape[0],
+            "levels": [f.shape[1] for f in feats],
             "boxes_per_level": torch.bincount(
                 lvl.flatten(), minlength=n_lev).tolist(),
             **_agreement(got, ref)}
     del ref
     case.update(
-        ms=_time_ms(lambda: kernel(feats, boxes, lvl, P, s), 20),
-        plain_ms=_time_ms(lambda: plain(feats, boxes, lvl, P, s),
+        ms=_time_ms(lambda: kernel(feats, boxes, lvl, P, s,
+                                   feat_scales=scales), 20),
+        plain_ms=_time_ms(lambda: plain(feats, boxes, lvl, P, s,
+                                        feat_scales=scales),
                           plain_iters, warmup=1),
         **_bound(*_pool_work(feats, boxes, lvl, P, s, per_tap)))
     return case
 
 
-def phase_kernels_k1() -> list:
+def phase_kernels_k1(int8: bool) -> list:
     from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused, \
         roi_align_fused_ref
 
+    name = "roi_align_int8" if int8 else "roi_align"
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for edge in (False, True):
-        for name, R, P in POOLERS:
+        for pooler, R, P in POOLERS:
             feats, boxes = _pool_inputs(g, R, edge)
             case = _pool_case(roi_align_fused, roi_align_fused_ref, feats,
-                              boxes, P, 2, 5, True, pooler=name, edge=edge,
-                              main=not edge)
+                              boxes, P, 2, 5, True, int8, pooler=pooler,
+                              edge=edge, main=not edge)
             _require(case["levels"] == [64, 32, 16]
                      and len(case["boxes_per_level"]) == 3,
                      f"not 3 levels of a 256 px tile: {case}")
-            _emit({"phase": "kernels", "kernel": "roi_align", **case})
+            _emit({"phase": "kernels", "kernel": name, **case})
             _require(case["finite"] and case["out_of_tolerance"] == 0,
-                     f"roi_align disagrees with its plain version: {case}")
+                     f"{name} disagrees with its plain version: {case}")
             cases.append(case)
     return cases
 
 
-def phase_kernels_k2() -> list:
+def phase_kernels_k2(int8: bool) -> list:
     from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import \
         roi_align_fused_blocked, roi_align_fused_blocked_ref
 
+    name = "roi_align_blocked_int8" if int8 else "roi_align_blocked"
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = []
     for edge in (False, True):
-        for name, R, P, s in PPOOLERS:
+        for pooler, R, P, s in PPOOLERS:
             feats, boxes = _parity_pool_inputs(g, R, edge)
             case = _pool_case(roi_align_fused_blocked,
                               roi_align_fused_blocked_ref, feats, boxes, P,
-                              s, 2, False, pooler=name, edge=edge,
+                              s, 2, False, int8, pooler=pooler, edge=edge,
                               main=not edge and s == 0)
             torch.cuda.empty_cache()
             _require(len(case["boxes_per_level"]) == 4,
                      f"not 4 levels at 800 px: {case}")
-            _emit({"phase": "kernels", "kernel": "roi_align_blocked",
-                   **case})
+            _emit({"phase": "kernels", "kernel": name, **case})
             _require(case["finite"] and case["out_of_tolerance"] == 0,
-                     f"roi_align_blocked disagrees with its plain version: "
-                     f"{case}")
+                     f"{name} disagrees with its plain version: {case}")
             cases.append(case)
     return cases
 
@@ -451,6 +507,63 @@ def phase_kernels_k3() -> list:
 
 
 # ---------------------------------------------------------------------------
+# K4: the int8 GEMM
+
+def phase_kernels_k4() -> list:
+    """Each GEMM shape in the raw, bf16 and int8 epilogue modes, held equal
+    to the plain version bit for bit (the integer sum is exact and the
+    epilogue rounds each f32 operation as the plain version does), its
+    time, the plain version's, ``torch._int_mm``'s for the raw mode, and
+    the bound: bytes over the memory rate, 2·M·K·N over the int8
+    tensor-core rate."""
+    from roadsurf_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_ref
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for shape, M, K, N in GEMMS:
+        a = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                          dtype=torch.int8)
+        # a unit's epilogue folded into its int8 consumer's scale: the sums
+        # have a spread of about 5400·sqrt(K), so y spreads over about ±50
+        # and the int8 mode rounds through its whole range
+        mult = (0.5 + torch.rand(N, generator=g, device="cuda")) \
+            * (50.0 / (5400.0 * K ** 0.5))
+        bias = 10.0 * torch.randn(N, generator=g, device="cuda")
+        for mode, kw in (("raw", {}),
+                         ("bf16", {"mult": mult, "bias": bias,
+                                   "relu": True}),
+                         ("int8", {"mult": mult, "bias": bias, "relu": True,
+                                   "quantize": True})):
+            got = int8_gemm(a, w, **kw)
+            ref = int8_gemm_ref(a, w, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            out_bytes = got.element_size()
+            nbytes = M * K + K * N + M * N * out_bytes \
+                + (8 * N if mode != "raw" else 0)
+            case = {"case": f"{shape} {mode}", "shape": shape, "mode": mode,
+                    "M": M, "K": K, "N": N, "main": mode == "raw",
+                    "max_abs_err": float(diff.max()),
+                    "mismatches": int((diff > 0).sum()),
+                    "max_abs_out": float(ref.float().abs().max()),
+                    "ms": _time_ms(lambda: int8_gemm(a, w, **kw), 20),
+                    "plain_ms": _time_ms(lambda: int8_gemm_ref(a, w, **kw), 3,
+                                         warmup=1),
+                    "library_ms": _time_ms(lambda: torch._int_mm(a, w), 20)
+                    if mode == "raw" else None,
+                    **_bound(nbytes, 2.0 * M * K * N, INT8_OPS_PER_S)}
+            del got, ref, diff
+            _emit({"phase": "kernels", "kernel": "int8_gemm", **case})
+            _require(case["mismatches"] == 0,
+                     f"int8_gemm {mode} differs from its plain version: "
+                     f"{case}")
+            cases.append(case)
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # main paths
 
 def _random_tree(cfg, gen):
@@ -471,16 +584,28 @@ def _drive(label: str, cfg, batch: int, sizes: list, mask_format: str,
            expect: dict, mask_key: str, mask_shape: tuple):
     """Run ``TileInferenceEngine`` over random 256 px tiles in batches of
     ``sizes`` after one warm-up batch, with every launch count set to 0
-    just before; check the launches (``expect``: per batch), the outputs
-    and the engine against a direct forward of the first and the last
-    (padded) batch."""
+    just before; check the launches (``expect``: per batch, every other
+    count 0), the outputs and the engine against a direct forward of the
+    first and the last (padded) batch. An int8 config is calibrated first,
+    as ``bench.py`` calibrates it: ``prepare_quantized`` on 8 random 256 px
+    tiles of ``np.random.default_rng(1)``."""
     from roadsurf_tpu_torch.engine import TileInferenceEngine
-    from roadsurf_tpu_torch.models import forward_inference
+    from roadsurf_tpu_torch.models import forward_inference, \
+        prepare_quantized
     from roadsurf_tpu_torch.utils.weights import from_jax_params
 
     gen = torch.Generator().manual_seed(0)
-    eng = TileInferenceEngine(from_jax_params(_random_tree(cfg, gen)), cfg,
-                              batch_size=batch, mask_format=mask_format)
+    state = from_jax_params(_random_tree(cfg, gen))
+    calib_s = None
+    if cfg.int8_scope:
+        t0 = time.perf_counter()
+        cal = np.random.default_rng(1).integers(0, 255, (8, TILE, TILE, 3),
+                                                dtype=np.uint8)
+        state["quant"] = prepare_quantized(state, cal, cfg)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+    eng = TileInferenceEngine(state, cfg, batch_size=batch,
+                              mask_format=mask_format)
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, 256, (n, TILE, TILE, 3), np.uint8)
                for n in sizes]
@@ -504,7 +629,7 @@ def _drive(label: str, cfg, batch: int, sizes: list, mask_format: str,
     peak = torch.cuda.max_memory_allocated()
 
     dispatched = 1 + len(batches)
-    want = {k: v * dispatched for k, v in expect.items()}
+    want = {k: expect.get(k, 0) * dispatched for k in launches}
     _require(launches == want, f"{label}: launches {launches} for "
              f"{dispatched} batches, expected {want}")
     _require([o["valid"].shape[0] for o in outs] == sizes,
@@ -547,8 +672,11 @@ def _drive(label: str, cfg, batch: int, sizes: list, mask_format: str,
              f"engine differs from the forward by {engine_max_diff}")
     tiles = sum(sizes)
     ms = start.elapsed_time(end)
-    res = {"phase": label, "dtype": cfg.compute_dtype, "batch": batch,
-           "input_size": cfg.min_size_test, "batches": sizes,
+    res = {"phase": label, "dtype": cfg.compute_dtype,
+           "int8": {"int8_scope": cfg.int8_scope,
+                    "int8_pyramid": cfg.int8_pyramid,
+                    "calibration_s": calib_s},
+           "batch": batch, "input_size": cfg.min_size_test, "batches": sizes,
            "tiles": tiles, "tiles_per_s": tiles / (ms / 1e3),
            "event_ms": ms, "wall_s": wall,
            "h2d_s": eng.stats["h2d_s"] - stats0["h2d_s"],
@@ -560,20 +688,34 @@ def _drive(label: str, cfg, batch: int, sizes: list, mask_format: str,
     return res, eng, batches
 
 
-def phase_main_path(n_batches: int = 7, tail: int = 40):
+def phase_main_path(int8: bool = False, n_batches: int = 7, tail: int = 40):
+    """The fast profile through the engine; with ``int8``, bench.py's
+    deployment configuration (int8 full + pyramid): both poolers then read
+    the int8 P-levels, K1 in its int8 mode."""
+    from dataclasses import replace
+
     from roadsurf_tpu_torch.models import fast_profile
 
     cfg = fast_profile(post_nms_topk=32)
+    if int8:
+        cfg = replace(cfg, **INT8)
+    label = "main_path_int8" if int8 else "main_path"
     res, eng, batches = _drive(
-        "main_path", cfg, B, [B] * (n_batches - 1) + [tail], "logits",
-        {"roi_align": 2, "roi_align_blocked": 0, "nms": 0}, "mask_logits",
+        label, cfg, B, [B] * (n_batches - 1) + [tail], "logits",
+        {"roi_align_int8" if int8 else "roi_align": 2}, "mask_logits",
         (28, 28))
-    res["profile"] = "fast_profile(post_nms_topk=32)"
+    res["profile"] = "fast_profile(post_nms_topk=32)" \
+        + (f" + {INT8}" if int8 else "")
     _emit(res)
     return res, eng, batches
 
 
-def phase_main_path_parity(n_batches: int = 4, tail: int = 9):
+def phase_main_path_parity(int8: bool = False, n_batches: int = 4,
+                           tail: int = 9):
+    """The parity profile through the engine (B=16, bits); with ``int8``,
+    the same int8 settings as the deployment configuration."""
+    from dataclasses import replace
+
     from roadsurf_tpu_torch.models.config import from_detectron2_yaml
 
     cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
@@ -582,14 +724,18 @@ def phase_main_path_parity(n_batches: int = 4, tail: int = 9):
               cfg.detections_per_image, cfg.fast_nms)
              == (PSIDE, 0, 1000, 1000, 100, False),
              f"unexpected parity config {cfg}")
+    if int8:
+        cfg = replace(cfg, **INT8)
     # per batch: K2 for the box and the mask pooler; K3 once for the
     # RPN's per-level NMS (all five levels in one launch) and once for
     # the class NMS
+    label = "main_path_parity_int8" if int8 else "main_path_parity"
     res, eng, batches = _drive(
-        "main_path_parity", cfg, PB, [PB] * (n_batches - 1) + [tail],
-        "bits", {"roi_align": 0, "roi_align_blocked": 2, "nms": 2},
-        "mask_bits", (98,))
-    res["profile"] = f"from_detectron2_yaml({YAML!r})"
+        label, cfg, PB, [PB] * (n_batches - 1) + [tail], "bits",
+        {"roi_align_blocked_int8" if int8 else "roi_align_blocked": 2,
+         "nms": 2}, "mask_bits", (98,))
+    res["profile"] = f"from_detectron2_yaml({YAML!r})" \
+        + (f" + {INT8}" if int8 else "")
     _emit(res)
     return res, eng, batches
 
@@ -665,21 +811,43 @@ def _toolchain() -> dict:
 
 def _record(name, source, replaces, launches, cases, err_key, per_key):
     """One entry of the ``kernels`` line: a forward's calls of the kernel
-    (the cases at the main path's shapes, summed) beside their bound and
-    plain time; the error over every case."""
+    (the cases at the main path's shapes, summed) beside their bound, plain
+    time and library time; the error over every case. ``launches``:
+    {path: count} of the main paths that ran."""
     timed = [c for c in cases if c["main"]]
-    t_bytes = sum(c["bytes"] for c in timed) / HBM_BYTES_PER_S
-    t_ops = sum(c["flops"] for c in timed) / F32_FLOPS_PER_S
+    t_bytes = sum(c["bytes_ms"] for c in timed)
+    t_ops = sum(c["ops_ms"] for c in timed)
+    lib = [c.get("library_ms") for c in timed]
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": max(c[err_key] for c in cases),
             "ms": sum(c["ms"] for c in timed),
             "plain_ms": sum(c["plain_ms"] for c in timed),
             "bound_ms": sum(c["bound_ms"] for c in timed),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-            "per_call": {c[per_key]: {k: c[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by")} for c in timed}}
+            "library_ms": sum(lib) if lib and None not in lib else None,
+            "per_call": {c[per_key]: {k: c.get(k) for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for c in timed}}
+
+
+PATHS = ("main_path", "main_path_parity", "main_path_int8",
+         "main_path_parity_int8")
+# kernel entry -> (source, TPU kernel it replaces, count name); K1 runs on
+# the fast paths, K2 and K3 on the parity paths, K4 on none
+KERNELS = {
+    "roi_align": ("roi_align.cu", "roi_align_pallas.py:638", "roi_align"),
+    "roi_align_int8": ("roi_align.cu", "roi_align_pallas.py:638",
+                       "roi_align_int8"),
+    "roi_align_blocked": ("roi_align_blocked.cu", "roi_align_pallas.py:471",
+                          "roi_align_blocked"),
+    "roi_align_blocked_int8": ("roi_align_blocked.cu",
+                               "roi_align_pallas.py:471",
+                               "roi_align_blocked_int8"),
+    "nms": ("nms.cu", "nms_pallas.py:59", "nms"),
+    "int8_gemm": ("int8_gemm.cu", "int8_gemm.py:79", "int8_gemm"),
+}
 
 
 def main() -> int:
@@ -690,7 +858,8 @@ def main() -> int:
     import roadsurf_tpu_torch  # noqa: F401  (fails outside the repository)
 
     # the plain versions are the references: their f32 products in full
-    # f32, not TF32 (the main paths compute in bf16 either way)
+    # f32, not TF32 (the bf16 paths compute in bf16 either way; the int8
+    # paths' integer products take TF32 themselves, exactly)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -701,34 +870,37 @@ def main() -> int:
         timeout=60, check=True).stdout.strip()
     _emit({"phase": "toolchain", **_toolchain(), "card": smi})
     phase_build()
-    k1 = phase_kernels_k1()
-    k2 = phase_kernels_k2()
-    k3 = phase_kernels_k3()
-    fast, eng, batches = phase_main_path()
-    phase_profile("main_path", eng, batches)
-    del eng
-    parity, eng, batches = phase_main_path_parity()
-    phase_profile("main_path_parity", eng, batches)
+    cases = {"roi_align": phase_kernels_k1(int8=False),
+             "roi_align_int8": phase_kernels_k1(int8=True),
+             "roi_align_blocked": phase_kernels_k2(int8=False),
+             "roi_align_blocked_int8": phase_kernels_k2(int8=True),
+             # K3's error is the count of keep flags unlike the plain
+             # version's
+             "nms": [dict(c, max_abs_err=c["mismatches"])
+                     for c in phase_kernels_k3()],
+             "int8_gemm": phase_kernels_k4()}
+    runs = {}
+    for label in PATHS:
+        fn = phase_main_path_parity if "parity" in label \
+            else phase_main_path
+        res, eng, batches = fn(int8=label.endswith("int8"))
+        phase_profile(label, eng, batches)
+        runs[label] = res
+        del eng, batches
+        torch.cuda.empty_cache()
 
-    # K1 runs on the fast path, K2 and K3 on the parity path; the times
-    # are one forward's calls: both poolers (K1, K2 at its adaptive
-    # sampling), the RPN's and the class NMS (K3)
+    # the times are one forward's calls at the main paths' shapes: both
+    # poolers (K2 at its adaptive sampling), the RPN's and the class NMS
+    # (K3); K4's are its raw GEMMs at the int8 stack's 1x1 and box FC1
+    # shapes
     _emit({"kernels": [
-        _record("roi_align", "roadsurf_tpu_torch/csrc/roi_align.cu",
-                "roadsurf_tpu/ops/roi_align_pallas.py:638",
-                fast["launches"]["roi_align"], k1, "max_abs_err", "pooler"),
-        _record("roi_align_blocked",
-                "roadsurf_tpu_torch/csrc/roi_align_blocked.cu",
-                "roadsurf_tpu/ops/roi_align_pallas.py:471",
-                parity["launches"]["roi_align_blocked"], k2, "max_abs_err",
-                "pooler"),
-        # K3's error is the count of keep flags unlike the plain version's
-        _record("nms", "roadsurf_tpu_torch/csrc/nms.cu",
-                "roadsurf_tpu/ops/nms_pallas.py:59",
-                parity["launches"]["nms"],
-                [dict(c, max_abs_err=c["mismatches"]) for c in k3],
-                "max_abs_err", "case"),
-    ]})
+        _record(name, "roadsurf_tpu_torch/csrc/" + src,
+                "roadsurf_tpu/ops/" + tpu,
+                {p: r["launches"][count] for p, r in runs.items()
+                 if r["launches"][count]},
+                cases[name], "max_abs_err",
+                "case" if name in ("nms", "int8_gemm") else "pooler")
+        for name, (src, tpu, count) in KERNELS.items()]})
     print(smi)
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,15 @@
 // Multilevel ROIAlignV2 (aligned=True) at a fixed s x s sampling grid, bf16
-// NHWC features in, bf16 (B, R, P, P, C) out, f32 accumulation.
+// NHWC features -- or int8 ones with one f32 scale a level -- in, bf16
+// (B, R, P, P, C) out, f32 accumulation.
 //
 // Replaces the TPU kernel roi_align_fused (roadsurf_tpu/ops/
-// roi_align_pallas.py:638) in its bf16 mode; the wrapper, the plain PyTorch
+// roi_align_pallas.py:638) in both its modes; the wrapper, the plain PyTorch
 // version and the note on what bounds this kernel are in
 // roadsurf_tpu_torch/ops/roi_align_kernel.py.
+//
+// Int8 levels: each tap is the bf16 value bf16(q * s_l) of the plain
+// version's dequantized level, one convert per tap; the scale of the box's
+// level is read from `scales`.
 //
 // Grid: one block per (image, box, output row p); threads over channel
 // pairs. Each block computes its row's y taps and all P x taps once into
@@ -19,6 +24,8 @@
 // that it equals the plain version's tensor arithmetic bit for bit, and a
 // sample on the border of [-1, dim] falls on the same side in both.
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -29,7 +36,7 @@ constexpr int kMaxSampling = 16;
 constexpr int kMaxTaps = 256;  // out_size * sampling along x
 
 struct Pyramid {
-  const __nv_bfloat16* feat[kMaxLevels];
+  const void* feat[kMaxLevels];
   int H[kMaxLevels];
   int W[kMaxLevels];
   float stride[kMaxLevels];
@@ -65,15 +72,28 @@ __device__ __forceinline__ Tap axis_tap(float lo, float bin_size, int bin,
   return t;
 }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+// Two neighbouring channels of a level as f32; int8 ones dequantized to
+// their bf16 values.
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p, float) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-__global__ void roi_align_bf16_kernel(Pyramid pyr,
-                                      const float* __restrict__ boxes,
-                                      const int* __restrict__ lvl,
-                                      __nv_bfloat16* __restrict__ out,
-                                      int R, int C, int P, int sampling) {
+__device__ __forceinline__ float dequant(signed char q, float s) {
+  return __bfloat162float(
+      __float2bfloat16_rn(__fmul_rn(static_cast<float>(q), s)));
+}
+
+__device__ __forceinline__ float2 load2(const int8_t* p, float s) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  return make_float2(dequant(v.x, s), dequant(v.y, s));
+}
+
+template <typename T>
+__global__ void roi_align_kernel(Pyramid pyr, const float* __restrict__ scales,
+                                 const float* __restrict__ boxes,
+                                 const int* __restrict__ lvl,
+                                 __nv_bfloat16* __restrict__ out, int R, int C,
+                                 int P, int sampling) {
   __shared__ Tap ytap[kMaxSampling];
   __shared__ Tap xtap[kMaxTaps];
 
@@ -97,8 +117,9 @@ __global__ void roi_align_bf16_kernel(Pyramid pyr,
     ytap[i] = axis_tap(y0, bh, p, i, sampling, stride, H);
   __syncthreads();
 
-  const __nv_bfloat16* f =
-      pyr.feat[l] + static_cast<size_t>(b) * H * W * C;
+  const T* f =
+      static_cast<const T*>(pyr.feat[l]) + static_cast<size_t>(b) * H * W * C;
+  const float scale = scales != nullptr ? scales[l] : 1.0f;
   __nv_bfloat16* o = out + (static_cast<size_t>(roi) * P + p) * P * C;
   const float inv = 1.0f / static_cast<float>(sampling * sampling);
 
@@ -108,15 +129,15 @@ __global__ void roi_align_bf16_kernel(Pyramid pyr,
       for (int sy = 0; sy < sampling; ++sy) {
         const Tap ty = ytap[sy];
         if (ty.w0 == 0.0f && ty.w1 == 0.0f) continue;
-        const __nv_bfloat16* r0 = f + static_cast<size_t>(ty.i0) * W * C + c;
-        const __nv_bfloat16* r1 = f + static_cast<size_t>(ty.i1) * W * C + c;
+        const T* r0 = f + static_cast<size_t>(ty.i0) * W * C + c;
+        const T* r1 = f + static_cast<size_t>(ty.i1) * W * C + c;
         for (int sx = 0; sx < sampling; ++sx) {
           const Tap tx = xtap[q * sampling + sx];
           if (tx.w0 == 0.0f && tx.w1 == 0.0f) continue;
-          const float2 v00 = load2(r0 + static_cast<size_t>(tx.i0) * C);
-          const float2 v01 = load2(r0 + static_cast<size_t>(tx.i1) * C);
-          const float2 v10 = load2(r1 + static_cast<size_t>(tx.i0) * C);
-          const float2 v11 = load2(r1 + static_cast<size_t>(tx.i1) * C);
+          const float2 v00 = load2(r0 + static_cast<size_t>(tx.i0) * C, scale);
+          const float2 v01 = load2(r0 + static_cast<size_t>(tx.i1) * C, scale);
+          const float2 v10 = load2(r1 + static_cast<size_t>(tx.i0) * C, scale);
+          const float2 v11 = load2(r1 + static_cast<size_t>(tx.i1) * C, scale);
           const float w00 = ty.w0 * tx.w0, w01 = ty.w0 * tx.w1;
           const float w10 = ty.w1 * tx.w0, w11 = ty.w1 * tx.w1;
           a0 += w00 * v00.x + w01 * v01.x + w10 * v10.x + w11 * v11.x;
@@ -135,16 +156,17 @@ __global__ void roi_align_bf16_kernel(Pyramid pyr,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// feats: n_levels NHWC bf16 levels (B, h_l, w_l, C) at strides
-// 2^(min_level + l); boxes (B, R, 4) f32 XYXY; lvl (B, R) int32 level
-// index; out (B, R, P, P, C) bf16. C even, pointers 4-byte aligned,
+// feats: n_levels NHWC levels (B, h_l, w_l, C) at strides 2^(min_level + l),
+// bf16 when `scales` is NULL, else int8 with scales[l] (f32, device) the
+// scale of level l; boxes (B, R, 4) f32 XYXY; lvl (B, R) int32 level index;
+// out (B, R, P, P, C) bf16. C even, pointers 4-byte aligned,
 // 1 <= sampling <= 16, P * sampling <= 256 (checked by the wrapper).
-int roi_align_bf16(const void* f0, const void* f1, const void* f2,
-                   const void* f3, int h0, int w0, int h1, int w1, int h2,
-                   int w2, int h3, int w3, int n_levels, int min_level,
-                   const void* boxes, const void* lvl, void* out, int B,
-                   int R, int C, int P, int sampling, int device,
-                   void* stream) {
+int roi_align_run(const void* f0, const void* f1, const void* f2,
+                  const void* f3, int h0, int w0, int h1, int w1, int h2,
+                  int w2, int h3, int w3, int n_levels, int min_level,
+                  const void* scales, const void* boxes, const void* lvl,
+                  void* out, int B, int R, int C, int P, int sampling,
+                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_levels < 1 || n_levels > kMaxLevels || sampling < 1 ||
@@ -156,7 +178,7 @@ int roi_align_bf16(const void* f0, const void* f1, const void* f2,
   const int hs[kMaxLevels] = {h0, h1, h2, h3};
   const int ws[kMaxLevels] = {w0, w1, w2, w3};
   for (int l = 0; l < kMaxLevels; ++l) {
-    pyr.feat[l] = static_cast<const __nv_bfloat16*>(fs[l]);
+    pyr.feat[l] = fs[l];
     pyr.H[l] = hs[l];
     pyr.W[l] = ws[l];
     pyr.stride[l] = static_cast<float>(1 << (min_level + l));
@@ -166,10 +188,19 @@ int roi_align_bf16(const void* f0, const void* f1, const void* f2,
   if (threads > 128) threads = 128;
   const long long blocks = static_cast<long long>(B) * R * P;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  roi_align_bf16_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      pyr, static_cast<const float*>(boxes), static_cast<const int*>(lvl),
-      static_cast<__nv_bfloat16*>(out), R, C, P, sampling);
+  const float* sc = static_cast<const float*>(scales);
+  const float* bx = static_cast<const float*>(boxes);
+  const int* lv = static_cast<const int*>(lvl);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sc == nullptr)
+    roi_align_kernel<__nv_bfloat16>
+        <<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+            pyr, sc, bx, lv, o, R, C, P, sampling);
+  else
+    roi_align_kernel<int8_t>
+        <<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+            pyr, sc, bx, lv, o, R, C, P, sampling);
   return static_cast<int>(cudaGetLastError());
 }
 

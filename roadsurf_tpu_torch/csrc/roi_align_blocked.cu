@@ -1,12 +1,16 @@
 // Multilevel ROIAlignV2 (aligned=True) on large maps, adaptive sampling
 // (POOLER_SAMPLING_RATIO 0, n = ceil(bin cells) samples per bin, no cap) or
-// a fixed s x s grid; bf16 NHWC features in, bf16 (B, R, P, P, C) out, f32
-// accumulation.
+// a fixed s x s grid; bf16 NHWC features -- or int8 ones with one f32 scale
+// a level -- in, bf16 (B, R, P, P, C) out, f32 accumulation.
 //
 // Replaces the TPU kernel roi_align_fused_blocked (roadsurf_tpu/ops/
-// roi_align_pallas.py:471) in its bf16 mode; the wrapper, the plain PyTorch
+// roi_align_pallas.py:471) in both its modes; the wrapper, the plain PyTorch
 // version and the note on what bounds this kernel are in
-// roadsurf_tpu_torch/ops/roi_align_blocked_kernel.py.
+// roadsurf_tpu_torch/ops/roi_align_blocked_kernel.py. Int8 levels: each cell
+// is the bf16 value bf16(q * s_l) of the plain version's dequantized level,
+// one convert per cell read; the scale of the box's level comes from
+// `scales`. (The TPU kernel scales the accumulated row instead,
+// roi_align_pallas.py:453-457.)
 //
 // Grid: one block per (image, box); threads over channel pairs. The block
 // first evaluates the box's interpolation weights along y for all P rows
@@ -27,6 +31,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,7 +45,7 @@ constexpr int kMaxSmem = 232448;
 constexpr int kThreads = 128;
 
 struct Pyramid {
-  const __nv_bfloat16* feat[kMaxLevels];
+  const void* feat[kMaxLevels];
   int H[kMaxLevels];
   int W[kMaxLevels];
   float stride[kMaxLevels];
@@ -183,12 +188,26 @@ __device__ __forceinline__ void fill_weights(const Axis& a, int2 span, int P,
   }
 }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+// Two neighbouring channels of a level as f32; int8 ones dequantized to
+// their bf16 values.
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p, float) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+__device__ __forceinline__ float dequant(signed char q, float s) {
+  return __bfloat162float(
+      __float2bfloat16_rn(__fmul_rn(static_cast<float>(q), s)));
+}
+
+__device__ __forceinline__ float2 load2(const int8_t* p, float s) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  return make_float2(dequant(v.x, s), dequant(v.y, s));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    roi_align_blocked_kernel(Pyramid pyr, const float* __restrict__ boxes,
+    roi_align_blocked_kernel(Pyramid pyr, const float* __restrict__ scales,
+                             const float* __restrict__ boxes,
                              const int* __restrict__ lvl,
                              __nv_bfloat16* __restrict__ out, int R, int C,
                              int P, int sampling, int side) {
@@ -223,7 +242,9 @@ __global__ void __launch_bounds__(kThreads)
   fill_weights(ax, sx, P, side, wx, xa, xb);
   __syncthreads();
 
-  const __nv_bfloat16* f = pyr.feat[l] + static_cast<size_t>(b) * H * W * C;
+  const T* f =
+      static_cast<const T*>(pyr.feat[l]) + static_cast<size_t>(b) * H * W * C;
+  const float scale = scales != nullptr ? scales[l] : 1.0f;
   __nv_bfloat16* o = out + static_cast<size_t>(roi) * P * P * C;
   for (int c = 2 * threadIdx.x; c < C; c += 2 * blockDim.x) {
     for (int p = 0; p < P; ++p) {
@@ -232,10 +253,10 @@ __global__ void __launch_bounds__(kThreads)
         const float* wxq = wx + q * side;
         float a0 = 0.0f, a1 = 0.0f;
         for (int y = ya[p]; y <= yb[p]; ++y) {
-          const __nv_bfloat16* row = f + static_cast<size_t>(y) * W * C + c;
+          const T* row = f + static_cast<size_t>(y) * W * C + c;
           float r0 = 0.0f, r1 = 0.0f;
           for (int x = xa[q]; x <= xb[q]; ++x) {
-            const float2 v = load2(row + static_cast<size_t>(x) * C);
+            const float2 v = load2(row + static_cast<size_t>(x) * C, scale);
             const float w = wxq[x - sx.x];
             r0 += w * v.x;
             r1 += w * v.y;
@@ -257,16 +278,18 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// feats: n_levels NHWC bf16 levels (B, h_l, w_l, C) at strides
-// 2^(min_level + l); boxes (B, R, 4) f32 XYXY; lvl (B, R) int32 level
-// index; out (B, R, P, P, C) bf16. C even, pointers 4-byte aligned,
+// feats: n_levels NHWC levels (B, h_l, w_l, C) at strides 2^(min_level + l),
+// bf16 when `scales` is NULL, else int8 with scales[l] (f32, device) the
+// scale of level l; boxes (B, R, 4) f32 XYXY; lvl (B, R) int32 level index;
+// out (B, R, P, P, C) bf16. C even, pointers 4-byte aligned,
 // 0 <= sampling <= 16 (0: adaptive), 1 <= P <= 32 (checked by the wrapper).
-int roi_align_blocked_bf16(const void* f0, const void* f1, const void* f2,
-                           const void* f3, int h0, int w0, int h1, int w1,
-                           int h2, int w2, int h3, int w3, int n_levels,
-                           int min_level, const void* boxes, const void* lvl,
-                           void* out, int B, int R, int C, int P,
-                           int sampling, int device, void* stream) {
+int roi_align_blocked_run(const void* f0, const void* f1, const void* f2,
+                          const void* f3, int h0, int w0, int h1, int w1,
+                          int h2, int w2, int h3, int w3, int n_levels,
+                          int min_level, const void* scales,
+                          const void* boxes, const void* lvl, void* out,
+                          int B, int R, int C, int P, int sampling,
+                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_levels < 1 || n_levels > kMaxLevels || sampling < 0 ||
@@ -279,7 +302,7 @@ int roi_align_blocked_bf16(const void* f0, const void* f1, const void* f2,
   const int ws[kMaxLevels] = {w0, w1, w2, w3};
   int side = 1;
   for (int l = 0; l < kMaxLevels; ++l) {
-    pyr.feat[l] = static_cast<const __nv_bfloat16*>(fs[l]);
+    pyr.feat[l] = fs[l];
     pyr.H[l] = hs[l];
     pyr.W[l] = ws[l];
     pyr.stride[l] = static_cast<float>(1 << (min_level + l));
@@ -293,8 +316,11 @@ int roi_align_blocked_bf16(const void* f0, const void* f1, const void* f2,
   const long long smem =
       2LL * P * side * sizeof(float) + 4LL * P * sizeof(int);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const float* sc = static_cast<const float*>(scales);
+  auto kernel = sc == nullptr ? &roi_align_blocked_kernel<__nv_bfloat16>
+                              : &roi_align_blocked_kernel<int8_t>;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(roi_align_blocked_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -303,11 +329,11 @@ int roi_align_blocked_bf16(const void* f0, const void* f1, const void* f2,
   if (threads > kThreads) threads = kThreads;
   const long long blocks = static_cast<long long>(B) * R;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  roi_align_blocked_kernel<<<static_cast<unsigned>(blocks), threads,
-                             static_cast<size_t>(smem),
-                             static_cast<cudaStream_t>(stream)>>>(
-      pyr, static_cast<const float*>(boxes), static_cast<const int*>(lvl),
-      static_cast<__nv_bfloat16*>(out), R, C, P, sampling, side);
+  kernel<<<static_cast<unsigned>(blocks), threads, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
+      pyr, sc, static_cast<const float*>(boxes),
+      static_cast<const int*>(lvl), static_cast<__nv_bfloat16*>(out), R, C, P,
+      sampling, side);
   return static_cast<int>(cudaGetLastError());
 }
 

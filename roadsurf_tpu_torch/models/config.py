@@ -98,8 +98,12 @@ class ModelConfig:
     # the reference's switch for its TPU pooler kernel; the port picks its
     # pooler from the tensor's device and never reads this field
     pallas_pooler: bool = True
-    # static-int8 stack (reference models/quant.py); not ported yet —
-    # forward_inference raises when any of these is set
+    # static-int8 stack (models/quant.py): int8_backbone quantizes the
+    # ResNet (the legacy state["backbone_q"], or state["quant"]["backbone"]);
+    # int8_scope "backbone" / "convnet" (+ FPN, RPN head) / "full" (+ box
+    # FCs, mask head) runs state["quant"] from prepare_quantized; an int8
+    # config without that state runs in compute_dtype. int8_pyramid keeps
+    # P2..P6 int8 in per-level scales (scopes "convnet" and "full")
     int8_backbone: bool = False
     int8_scope: str = ""
     int8_pyramid: bool = False

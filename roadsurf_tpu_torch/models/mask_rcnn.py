@@ -4,8 +4,13 @@
   -> ResNet-50 + FPN -> RPN proposals -> box head -> fixed-shape class NMS
   -> mask head on the detections -> 28x28 per-instance masks.
 
-Port of the reference's ``forward_inference`` without its int8 branches.
-The parameter tree is the state ``utils.weights.from_jax_params`` builds.
+Port of the reference's ``forward_inference``, with its static-int8
+branches (``models/quant.py``): an int8 config whose state carries the
+calibrated ``quant`` (or legacy ``backbone_q``) group runs the int8 stack,
+and without one it runs in the compute dtype, as the reference's
+``_quant_tree`` decides. The state is the one ``utils.weights.
+from_jax_params`` builds, with ``quant`` from ``from_jax_quant`` or the
+port's ``quant.prepare_quantized``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from ..utils.weights import state_to
 from .anchors import all_level_anchors
 from .config import ModelConfig
 from .fpn import fpn_forward
+from .quant import fpn_forward_int8, fpn_forward_int8_pyr, \
+    resnet_forward_int8, rpn_head_forward_int8, rpn_head_forward_int8_pyr
 from .resnet import BLOCKS_PER_STAGE, resnet_forward
 from .roi_heads import box_head_forward, inference_detections, \
     mask_head_forward
@@ -66,12 +73,50 @@ def preprocess(images: torch.Tensor, cfg: ModelConfig,
 
 
 def check_config(cfg: ModelConfig, mask_format: str):
-    if cfg.int8_scope or cfg.int8_backbone or cfg.int8_pyramid:
-        raise NotImplementedError(
-            "the int8 stack (int8_scope/int8_backbone/int8_pyramid) is not "
-            "ported; see ROADMAP.md Queue A item 9")
     if mask_format not in MASK_FORMATS:
         raise ValueError(f"mask_format must be one of {MASK_FORMATS}")
+
+
+def _quant_tree(state: dict, cfg: ModelConfig) -> dict:
+    """The calibrated int8 groups this config runs: ``state['quant']`` for
+    an ``int8_scope``, its backbone (or the legacy ``state['backbone_q']``)
+    for ``int8_backbone``; empty (run in the compute dtype) otherwise."""
+    if cfg.int8_scope and "quant" in state:
+        return state["quant"]
+    if cfg.int8_backbone:
+        if "quant" in state:
+            return {"backbone": state["quant"]["backbone"]}
+        if "backbone_q" in state:
+            return {"backbone": state["backbone_q"]}
+    return {}
+
+
+def _features(state, q, x, cfg, dtype):
+    """Backbone, FPN and RPN head, each int8 where ``q`` has its group;
+    -> (P-levels, objectness, deltas, the levels' scales or None)."""
+    pyr = q.get("pyr") if cfg.int8_pyramid else None
+    if pyr is not None:
+        # int8 pyramid: stage outputs, FPN and P-levels stay int8; the RPN
+        # head and the poolers read the levels in their scales
+        res = resnet_forward_int8(q["backbone"], x, out_sas=pyr["res_sa"])
+        fpn_feats = fpn_forward_int8_pyr(q["fpn"], pyr, res, dtype)
+        logits, deltas = rpn_head_forward_int8_pyr(q["rpn"], pyr, fpn_feats)
+        return fpn_feats, logits, deltas, pyr["out_sa"]
+    if "backbone" in q:
+        feats = resnet_forward_int8(q["backbone"], x)
+    else:
+        feats = resnet_forward(state["backbone"], x)
+    if "fpn" in q:
+        fpn_feats = fpn_forward_int8(q["fpn"], feats, dtype)
+    else:
+        fpn_feats = fpn_forward(state["fpn"], {k: v.to(dtype)
+                                               for k, v in feats.items()})
+    if "rpn" in q:
+        logits, deltas = rpn_head_forward_int8(q["rpn"], fpn_feats)
+    else:
+        logits, deltas = rpn_head_forward(
+            state["rpn"], [f.to(dtype) for f in fpn_feats], cfg.num_anchors)
+    return fpn_feats, logits, deltas, None
 
 
 def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
@@ -81,12 +126,19 @@ def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
     dtype = compute_dtype(cfg)
     native = images.shape[1]
     S = cfg.min_size_test if cfg.min_size_test else native
-    x = preprocess(images, cfg, S).to(dtype).permute(0, 3, 1, 2) \
-        .contiguous(memory_format=torch.channels_last)
-    fpn_feats = fpn_forward(state["fpn"],
-                            resnet_forward(state["backbone"], x))
-    logits, deltas = rpn_head_forward(state["rpn"], fpn_feats,
-                                      cfg.num_anchors)
+    q = _quant_tree(state, cfg)
+    stem_u8 = q.get("backbone", {}).get("stem_u8")
+    if (stem_u8 is not None and images.dtype == torch.uint8
+            and images.shape[1] == S and images.shape[2] == S
+            and stem_u8["bias"].shape[-1] == -(-S // 2)):
+        # uint8-direct stem (quant.quantize_stem_u8): the preprocess folds
+        # into the quantized stem, raw tiles feed the backbone
+        x = images.permute(0, 3, 1, 2)
+    else:
+        x = preprocess(images, cfg, S).to(dtype).permute(0, 3, 1, 2) \
+            .contiguous(memory_format=torch.channels_last)
+    fpn_feats, logits, deltas, feat_scales = _features(state, q, x, cfg,
+                                                       dtype)
     anchors = all_level_anchors(S, cfg.fpn_strides, cfg.anchor_sizes,
                                 cfg.anchor_aspect_ratios, cfg.anchor_offset)
     gate_geom = [(cfg.num_anchors, cfg.anchor_aspect_ratios, st, sz)
@@ -98,15 +150,17 @@ def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
         gate_geom=gate_geom)
 
     # box/mask pool from P2..P5, NHWC views of the channels_last maps
-    box_feats = [f.permute(0, 2, 3, 1) for f in fpn_feats[:4]]
-    class_logits, box_deltas = box_head_forward(state["box_head"], box_feats,
-                                                proposals, cfg)
+    box_feats = [f.permute(0, 2, 3, 1).contiguous() for f in fpn_feats[:4]]
+    class_logits, box_deltas = box_head_forward(
+        state["box_head"], box_feats, proposals, cfg, qp=q.get("box"),
+        feat_scales=feat_scales)
     dets = inference_detections(class_logits, box_deltas, proposals,
                                 prop_scores, cfg, S)
 
     if with_masks:
-        mask_logits = mask_head_forward(state["mask_head"], box_feats,
-                                        dets["boxes"], cfg)
+        mask_logits = mask_head_forward(
+            state["mask_head"], box_feats, dets["boxes"], cfg,
+            qp=q.get("mask"), feat_scales=feat_scales)
         cls = dets["classes"].long()
         masks = torch.gather(
             mask_logits, -1,

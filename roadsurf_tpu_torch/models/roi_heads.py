@@ -5,6 +5,10 @@ ROIAlignV2 7x7 -> 2x FC -> per-class scores and deltas (weights 10,10,5,5);
 mask head ROIAlignV2 14x14 -> 4x conv -> 2x deconv -> per-class 28x28
 masks. Inference keeps score>=0.05, class-wise NMS, <=D detections per
 image. All stages are fixed-shape (padded, masked).
+
+With the static-int8 stack (``models/quant.py``) the box head's FC1 and FC2
+and the whole mask head run int8 (``qp``), and the levels may be int8
+pyramid levels in per-level scales (``feat_scales``).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch.nn.functional as F
 from ..ops.nms import NEG_INF, batched_nms_fixed
 from ..ops.roi_align import roi_align_multilevel
 from .anchors import apply_deltas, clip_boxes
+from .quant import _quantize_act, qconv_int8_in, qdeconv_int8_in, qlinear
 from .resnet import conv
 
 
@@ -24,37 +29,71 @@ def _linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     return F.linear(x.to(p["w"].dtype), p["w"]).float() + p["b"].float()
 
 
-def _pool(feats, boxes, out_size, cfg):
+def _pool(feats, boxes, out_size, cfg, feat_scales):
     return roi_align_multilevel(feats, boxes, out_size,
                                 sampling=cfg.pooler_sampling_ratio,
                                 canonical_size=cfg.canonical_box_size,
-                                canonical_level=cfg.canonical_level)
+                                canonical_level=cfg.canonical_level,
+                                feat_scales=feat_scales)
 
 
-def box_head_forward(params: dict, feats: list, boxes: torch.Tensor, cfg):
+def box_head_forward(params: dict, feats: list, boxes: torch.Tensor, cfg,
+                     qp: dict | None = None, feat_scales=None):
     """feats: NHWC (B, H, W, C) levels; boxes (B, R, 4) ->
     (class_logits (B, R, C+1), deltas (B, R, C, 4)), float32.
 
     The pooled features flatten in (p, q, c) order, the row order of the
-    reference's fc1 weight."""
+    reference's fc1 weight. ``qp``: int8 FC1 and FC2 (the predictors stay
+    in the compute dtype); ``feat_scales``: the levels' scales when they
+    are int8."""
     B, R = boxes.shape[:2]
-    x = _pool(feats, boxes, cfg.box_pooler_resolution, cfg).reshape(B * R, -1)
-    x = torch.relu(_linear(x, params["fc1"]))
-    x = torch.relu(_linear(x, params["fc2"]))
+    x = _pool(feats, boxes, cfg.box_pooler_resolution, cfg,
+              feat_scales).reshape(B * R, -1)
+    if qp is not None:
+        x = qlinear(x, qp["fc1"], relu=True)
+        x = qlinear(x, qp["fc2"], relu=True)
+    else:
+        x = torch.relu(_linear(x, params["fc1"]))
+        x = torch.relu(_linear(x, params["fc2"]))
     logits = _linear(x, params["cls"]).reshape(B, R, -1)
     deltas = _linear(x, params["bbox"]).reshape(B, R, cfg.num_classes, 4)
     return logits, deltas
 
 
-def mask_head_forward(params: dict, feats: list, boxes: torch.Tensor, cfg):
-    """boxes (B, D, 4) -> per-class mask logits (B, D, 2P, 2P, C), float32."""
+def mask_head_forward(params: dict, feats: list, boxes: torch.Tensor, cfg,
+                      qp: dict | None = None, feat_scales=None):
+    """boxes (B, D, 4) -> per-class mask logits (B, D, 2P, 2P, C), float32.
+
+    ``qp``: the int8 conv stream, each conv's epilogue quantizing into the
+    next one's scale; with its ``deconv`` and ``predictor`` units the stream
+    stays int8 through the deconv into the predictor. ``feat_scales`` as
+    for the box head."""
     B, D = boxes.shape[:2]
     P = cfg.mask_pooler_resolution
     dtype = params["conv1"]["w"].dtype
-    pooled = _pool(feats, boxes, P, cfg).reshape(B * D, P, P, -1)
+    pooled = _pool(feats, boxes, P, cfg, feat_scales).reshape(B * D, P, P, -1)
     x = pooled.to(dtype).permute(0, 3, 1, 2)       # channels_last NCHW
-    for i in range(cfg.mask_num_conv):
-        x = torch.relu_(conv(x, params[f"conv{i + 1}"]))
+    if qp is not None:
+        n = cfg.mask_num_conv
+        tail = "deconv" in qp and "predictor" in qp
+        xq = _quantize_act(x.float(), qp["conv1"]["sa"])
+        for i in range(n):
+            if i + 1 < n:
+                sa_out = qp[f"conv{i + 2}"]["sa"]
+            else:
+                sa_out = qp["deconv"]["sa"] if tail else None
+            xq = qconv_int8_in(xq, qp[f"conv{i + 1}"], relu=True,
+                               sa_out=sa_out)
+        if tail:
+            xq = qdeconv_int8_in(xq, qp["deconv"], relu=True,
+                                 sa_out=qp["predictor"]["sa"])
+            x = qconv_int8_in(xq, qp["predictor"], relu=False).float()
+            return x.permute(0, 2, 3, 1).reshape(B, D, 2 * P, 2 * P,
+                                                 cfg.num_classes)
+        x = xq.to(dtype)                       # bf16 after the last conv
+    else:
+        for i in range(cfg.mask_num_conv):
+            x = torch.relu_(conv(x, params[f"conv{i + 1}"]))
     p = params["deconv"]
     x = torch.relu_(F.conv_transpose2d(x, p["w"], p["b"], stride=2))
     p = params["predictor"]

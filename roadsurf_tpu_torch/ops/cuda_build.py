@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("roi_align", "roi_align_blocked", "nms")
+SOURCES = ("roi_align", "roi_align_blocked", "nms", "int8_gemm")
 
 
 def nvcc_path() -> str:

@@ -14,7 +14,8 @@ fixed sampling on maps of at most 160² cells at P2 goes to
 and fixed sampling on large maps, to ``roi_align_fused_blocked`` (K2). The
 reference sends adaptive sampling on small maps to its XLA path; K2
 computes the same function. Each wrapper launches its kernel on CUDA
-tensors and runs its plain version on CPU tensors.
+tensors and runs its plain version on CPU tensors. Int8 pyramid levels
+(``feat_scales``) take the same routes, in the kernels' int8 mode.
 """
 
 from __future__ import annotations
@@ -73,11 +74,13 @@ def uses_blocked(feats, sampling: int) -> bool:
 
 def roi_align_multilevel(feats: list, boxes: torch.Tensor, out_size: int,
                          sampling: int = 2, canonical_size: int = 224,
-                         canonical_level: int = 4,
-                         min_level: int = 2) -> torch.Tensor:
+                         canonical_level: int = 4, min_level: int = 2,
+                         feat_scales=None) -> torch.Tensor:
     """feats: [P2..P5] NHWC (B, H, W, C); boxes: (B, R, 4) XYXY f32 in image
-    coordinates. Returns (B, R, out_size, out_size, C) in the feature dtype.
-    ``sampling == 0`` is adaptive.
+    coordinates. Returns (B, R, out_size, out_size, C) in the feature dtype
+    (bf16 on the card, float32 on the CPU for int8 levels).
+    ``sampling == 0`` is adaptive; ``feat_scales`` (float32, one a level or
+    more) marks the levels as int8 pyramid levels.
 
     On CUDA tensors this launches K1 or K2 (see the module docstring); on
     CPU tensors it runs the chosen kernel's plain version."""
@@ -87,18 +90,19 @@ def roi_align_multilevel(feats: list, boxes: torch.Tensor, out_size: int,
         else roi_align_fused
     feats, lvl = _levels(feats, boxes, canonical_size, canonical_level,
                          min_level)
-    return fn(feats, boxes.contiguous(), lvl, out_size, sampling, min_level)
+    return fn(feats, boxes.contiguous(), lvl, out_size, sampling, min_level,
+              feat_scales)
 
 
 def roi_align_multilevel_ref(feats: list, boxes: torch.Tensor,
                              out_size: int, sampling: int = 2,
                              canonical_size: int = 224,
-                             canonical_level: int = 4,
-                             min_level: int = 2) -> torch.Tensor:
+                             canonical_level: int = 4, min_level: int = 2,
+                             feat_scales=None) -> torch.Tensor:
     """The plain version of the same route on any device, float32 out (the
     reference's separable path)."""
     fn = roi_align_fused_blocked_ref if uses_blocked(feats, sampling) \
         else roi_align_fused_ref
     feats, lvl = _levels(feats, boxes, canonical_size, canonical_level,
                          min_level)
-    return fn(feats, boxes, lvl, out_size, sampling, min_level)
+    return fn(feats, boxes, lvl, out_size, sampling, min_level, feat_scales)

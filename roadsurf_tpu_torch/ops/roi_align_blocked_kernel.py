@@ -2,8 +2,10 @@
 sampling: the Hopper kernel's wrapper and its plain PyTorch version.
 
 Replaces the TPU kernel ``roi_align_fused_blocked`` of the reference
-package (roadsurf_tpu/ops/roi_align_pallas.py:471) in its bf16 mode, for
-both sampling modes: the adaptive one (``sampling == 0``,
+package (roadsurf_tpu/ops/roi_align_pallas.py:471) in both its modes, bf16
+levels and int8 pyramid levels with per-level scales (each tap the bf16
+value ``bf16(q · s_l)``, as for K1 in ``roi_align_kernel.py``), and in both
+sampling modes: the adaptive one (``sampling == 0``,
 POOLER_SAMPLING_RATIO 0: n = ceil(bin cells) samples per bin, no cap) and
 a fixed s×s grid. The kernel source is ``csrc/roi_align_blocked.cu``,
 built and loaded by ``ops/cuda_build.py``.
@@ -34,21 +36,23 @@ import torch
 
 from . import cuda_build
 from .roi_align_kernel import MAX_SAMPLING, POOLER_ARGTYPES, \
-    check_pooler_inputs, launch_pooler, roi_align_fused_ref
+    check_pooler_inputs, dequantize, launch_pooler, plain_on_cpu, \
+    roi_align_fused_ref
 
 MAX_OUT = 32                    # out_size (per-bin range tables)
 MAX_SMEM = 232448               # bytes of shared memory a block may use
 
 
 def roi_align_fused_blocked_ref(feats, boxes, lvl, out_size: int,
-                                sampling: int, min_level: int = 2
-                                ) -> torch.Tensor:
+                                sampling: int, min_level: int = 2,
+                                feat_scales=None) -> torch.Tensor:
     """The plain version: the separable contraction in float32 with the
     adaptive (``sampling == 0``) or fixed weights, levels summed, one image
     at a time as the reference's separable path does on large maps
     (roadsurf_tpu/ops/roi_align.py:320-330): the (R, P, W, C) intermediate
     is 1.4 GB an image at P2 of 800 px with R = 1000. Same arguments and
     result as :func:`roi_align_fused_ref`."""
+    feats = dequantize(feats, feat_scales)
     return torch.cat([
         roi_align_fused_ref(tuple(f[b:b + 1] for f in feats),
                             boxes[b:b + 1], lvl[b:b + 1], out_size, sampling,
@@ -59,13 +63,13 @@ def roi_align_fused_blocked_ref(feats, boxes, lvl, out_size: int,
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.library("roi_align_blocked")
-    lib.roi_align_blocked_bf16.argtypes = POOLER_ARGTYPES
-    lib.roi_align_blocked_bf16.restype = ctypes.c_int
+    lib.roi_align_blocked_run.argtypes = POOLER_ARGTYPES
+    lib.roi_align_blocked_run.restype = ctypes.c_int
     return lib
 
 
-def _check(feats, boxes, lvl, out_size, sampling):
-    check_pooler_inputs(feats, boxes, lvl)
+def _check(feats, boxes, lvl, out_size, sampling, feat_scales=None):
+    check_pooler_inputs(feats, boxes, lvl, feat_scales)
     if not (0 <= sampling <= MAX_SAMPLING and 1 <= out_size <= MAX_OUT):
         raise ValueError(f"unsupported out_size={out_size}, "
                          f"sampling={sampling}")
@@ -78,21 +82,22 @@ def _check(feats, boxes, lvl, out_size, sampling):
 
 
 def roi_align_fused_blocked(feats, boxes, lvl, out_size: int, sampling: int,
-                            min_level: int = 2) -> torch.Tensor:
+                            min_level: int = 2, feat_scales=None
+                            ) -> torch.Tensor:
     """Pool (B, R, P, P, C) from NHWC levels; same arguments as
     :func:`roi_align_fused_blocked_ref`. Launches the kernel for CUDA
-    tensors (bf16 levels, bf16 out) and runs the plain version, cast to
-    the feature dtype, for CPU tensors."""
+    tensors (bf16 levels, or int8 levels with ``feat_scales``; bf16 out)
+    and runs the plain version for CPU tensors (``plain_on_cpu``)."""
     if boxes.device.type == "cpu":
-        return roi_align_fused_blocked_ref(feats, boxes, lvl, out_size,
-                                           sampling, min_level
-                                           ).to(feats[0].dtype)
+        return plain_on_cpu(roi_align_fused_blocked_ref, feats, boxes, lvl,
+                            out_size, sampling, min_level, feat_scales)
     if boxes.device.type != "cuda":
         raise ValueError(f"no roi_align for {boxes.device.type} tensors")
-    _check(feats, boxes, lvl, out_size, sampling)
+    _check(feats, boxes, lvl, out_size, sampling, feat_scales)
     return launch_pooler(roi_align_fused_blocked, "roi_align_blocked",
-                         _library().roi_align_blocked_bf16, feats, boxes,
-                         lvl, out_size, sampling, min_level)
+                         _library().roi_align_blocked_run, feats, boxes,
+                         lvl, out_size, sampling, min_level, feat_scales)
 
 
 roi_align_fused_blocked.launches = 0
+roi_align_fused_blocked.launches_int8 = 0

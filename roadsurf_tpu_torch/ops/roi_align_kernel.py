@@ -2,10 +2,20 @@
 PyTorch version.
 
 Replaces the TPU kernel ``roi_align_fused`` of the reference package
-(roadsurf_tpu/ops/roi_align_pallas.py:638) in its bf16 mode. The kernel
-source is ``csrc/roi_align.cu``: CUDA C++ for ``sm_90a``, compiled by
-``nvcc`` into a shared library with a plain C interface at first use
-(into ``_build/``, keyed by the source's hash) and loaded with ctypes.
+(roadsurf_tpu/ops/roi_align_pallas.py:638) in both its modes: bf16 levels,
+and int8 pyramid levels with one float32 scale a level (``feat_scales``).
+The kernel source is ``csrc/roi_align.cu``: CUDA C++ for ``sm_90a``,
+compiled by ``nvcc`` into a shared library with a plain C interface at
+first use (into ``_build/``, keyed by the source's hash) and loaded with
+ctypes.
+
+Int8 levels follow the reference's XLA path, not its TPU kernel: each tap
+is the dequantized bf16 value ``bf16(q · s_l)`` (roadsurf_tpu/ops/
+roi_align.py:530-537), pooled in float32. The TPU kernel folds the scale
+into its f32 weights instead, which moves pooled values by up to 2⁻⁹
+relative; FC1 re-quantizes them, so int8 values would flip. The kernel
+converts each tap once and reads half the bytes of the bf16 mode; its
+output is bf16 in both modes.
 
 What bounds it on an H100: bytes. Each output value is a weighted sum of
 s²·4 bf16 taps, 32 FLOPs at s = 2, against its own 2-byte store plus the
@@ -147,11 +157,23 @@ def axis_weights(feats, boxes, lvl, out_size: int, sampling: int,
     return out
 
 
+def dequantize(feats, feat_scales):
+    """int8 levels -> their bf16 values ``bf16(q · s_l)``; other levels as
+    they are when ``feat_scales`` is None."""
+    if feat_scales is None:
+        return feats
+    return tuple((f.float() * feat_scales[i]).to(torch.bfloat16)
+                 for i, f in enumerate(feats))
+
+
 def roi_align_fused_ref(feats, boxes, lvl, out_size: int, sampling: int,
-                        min_level: int = 2) -> torch.Tensor:
+                        min_level: int = 2, feat_scales=None
+                        ) -> torch.Tensor:
     """The plain version: separable contractions per level, levels summed,
     in float32. feats: tuple of (B, H_l, W_l, C); boxes (B, R, 4) XYXY;
-    lvl (B, R) level index per box. Returns (B, R, P, P, C) float32."""
+    lvl (B, R) level index per box; ``feat_scales`` (≥ n_levels,) float32
+    for int8 levels. Returns (B, R, P, P, C) float32."""
+    feats = dequantize(feats, feat_scales)
     acc = None
     for f, (wy, wx) in zip(feats, axis_weights(feats, boxes, lvl, out_size,
                                                sampling, min_level)):
@@ -162,36 +184,40 @@ def roi_align_fused_ref(feats, boxes, lvl, out_size: int, sampling: int,
 
 
 # the C interface of csrc/roi_align.cu and csrc/roi_align_blocked.cu: level
-# pointers, level sides, n_levels, min_level, boxes, lvl, out, B, R, C, P,
-# sampling, device, stream
+# pointers, level sides, n_levels, min_level, scales (NULL: bf16 levels),
+# boxes, lvl, out, B, R, C, P, sampling, device, stream
 POOLER_ARGTYPES = ([ctypes.c_void_p] * MAX_LEVELS
                    + [ctypes.c_int] * (2 * MAX_LEVELS + 2)
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.library("roi_align")
-    lib.roi_align_bf16.argtypes = POOLER_ARGTYPES
-    lib.roi_align_bf16.restype = ctypes.c_int
+    lib.roi_align_run.argtypes = POOLER_ARGTYPES
+    lib.roi_align_run.restype = ctypes.c_int
     return lib
 
 
-def check_pooler_inputs(feats, boxes, lvl):
+def check_pooler_inputs(feats, boxes, lvl, feat_scales=None):
     """The checks both pooler kernels (K1 here, K2 in
-    ``roi_align_blocked_kernel.py``) make of their inputs."""
+    ``roi_align_blocked_kernel.py``) make of their inputs: bf16 levels, or
+    int8 levels with ``feat_scales``."""
     if not 1 <= len(feats) <= MAX_LEVELS:
         raise ValueError(f"1..{MAX_LEVELS} levels expected, got {len(feats)}")
     B, R = boxes.shape[:2]
     C = feats[0].shape[-1]
     dev = boxes.device
+    want = torch.bfloat16 if feat_scales is None else torch.int8
     for f in feats:
         if f.dim() != 4 or f.shape[0] != B or f.shape[-1] != C:
             raise ValueError(f"level shape {tuple(f.shape)} does not match "
                              f"(B={B}, H, W, C={C})")
-        if f.dtype != torch.bfloat16:
-            raise TypeError(f"levels must be bfloat16, got {f.dtype}")
+        if f.dtype != want:
+            raise TypeError(f"levels must be {want} when feat_scales is "
+                            f"{feat_scales is None and 'None' or 'given'}, "
+                            f"got {f.dtype}")
         if f.device != dev or not f.is_contiguous() \
                 or f.data_ptr() % 4:
             raise ValueError("levels must be contiguous NHWC on the boxes' "
@@ -205,13 +231,22 @@ def check_pooler_inputs(feats, boxes, lvl):
             or lvl.device != dev or not lvl.is_contiguous():
         raise ValueError("lvl must be contiguous int32 (B, R) on the "
                          "boxes' device")
+    if feat_scales is not None and (
+            feat_scales.dtype != torch.float32 or feat_scales.dim() != 1
+            or feat_scales.shape[0] < len(feats)
+            or feat_scales.device != dev
+            or not feat_scales.is_contiguous()):
+        raise ValueError("feat_scales must be contiguous float32 (≥ "
+                         "n_levels,) on the boxes' device")
 
 
 def launch_pooler(wrapper, name: str, entry, feats, boxes, lvl,
-                  out_size: int, sampling: int, min_level: int):
+                  out_size: int, sampling: int, min_level: int,
+                  feat_scales=None):
     """Allocate the (B, R, P, P, C) bf16 output and launch ``entry`` of
     ``csrc/<name>.cu`` (``POOLER_ARGTYPES``) on the current stream; raise
-    if the launch failed, else count it on ``wrapper``. Inputs checked."""
+    if the launch failed, else count it on ``wrapper`` (``launches`` for
+    bf16 levels, ``launches_int8`` for int8 ones). Inputs checked."""
     B, R = boxes.shape[:2]
     C = feats[0].shape[-1]
     out = torch.empty((B, R, out_size, out_size, C), dtype=torch.bfloat16,
@@ -224,16 +259,28 @@ def launch_pooler(wrapper, name: str, entry, feats, boxes, lvl,
     for li in range(MAX_LEVELS):
         dims += [feats[li].shape[1], feats[li].shape[2]] if li < n else [0, 0]
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    rc = entry(*ptrs, *dims, n, min_level, boxes.data_ptr(), lvl.data_ptr(),
-               out.data_ptr(), B, R, C, out_size, sampling,
+    scales = None if feat_scales is None else feat_scales.data_ptr()
+    rc = entry(*ptrs, *dims, n, min_level, scales, boxes.data_ptr(),
+               lvl.data_ptr(), out.data_ptr(), B, R, C, out_size, sampling,
                boxes.device.index, stream)
     cuda_build.check(name, rc, name)
-    wrapper.launches += 1
+    if feat_scales is None:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_int8 += 1
     return out
 
 
-def _check(feats, boxes, lvl, out_size, sampling):
-    check_pooler_inputs(feats, boxes, lvl)
+def plain_on_cpu(ref, feats, boxes, lvl, out_size, sampling, min_level,
+                 feat_scales):
+    """A wrapper's CPU branch: the plain version in the levels' dtype
+    (bf16 or float32), float32 for int8 levels."""
+    out = ref(feats, boxes, lvl, out_size, sampling, min_level, feat_scales)
+    return out if feat_scales is not None else out.to(feats[0].dtype)
+
+
+def _check(feats, boxes, lvl, out_size, sampling, feat_scales=None):
+    check_pooler_inputs(feats, boxes, lvl, feat_scales)
     if not (1 <= sampling <= MAX_SAMPLING
             and 1 <= out_size * sampling <= MAX_TAPS):
         raise ValueError(f"unsupported out_size={out_size}, "
@@ -241,20 +288,21 @@ def _check(feats, boxes, lvl, out_size, sampling):
 
 
 def roi_align_fused(feats, boxes, lvl, out_size: int, sampling: int,
-                    min_level: int = 2) -> torch.Tensor:
+                    min_level: int = 2, feat_scales=None) -> torch.Tensor:
     """Pool (B, R, P, P, C) from NHWC levels; same arguments as
-    :func:`roi_align_fused_ref`. Launches the kernel for CUDA tensors
-    (bf16 levels, bf16 out) and runs the plain version, cast to the
-    feature dtype, for CPU tensors."""
+    :func:`roi_align_fused_ref`. Launches the kernel for CUDA tensors (bf16
+    levels, or int8 levels with ``feat_scales``; bf16 out) and runs the
+    plain version for CPU tensors (:func:`plain_on_cpu`)."""
     if boxes.device.type == "cpu":
-        return roi_align_fused_ref(feats, boxes, lvl, out_size, sampling,
-                                   min_level).to(feats[0].dtype)
+        return plain_on_cpu(roi_align_fused_ref, feats, boxes, lvl, out_size,
+                            sampling, min_level, feat_scales)
     if boxes.device.type != "cuda":
         raise ValueError(f"no roi_align for {boxes.device.type} tensors")
-    _check(feats, boxes, lvl, out_size, sampling)
+    _check(feats, boxes, lvl, out_size, sampling, feat_scales)
     return launch_pooler(roi_align_fused, "roi_align",
-                         _library().roi_align_bf16, feats, boxes, lvl,
-                         out_size, sampling, min_level)
+                         _library().roi_align_run, feats, boxes, lvl,
+                         out_size, sampling, min_level, feat_scales)
 
 
 roi_align_fused.launches = 0
+roi_align_fused.launches_int8 = 0

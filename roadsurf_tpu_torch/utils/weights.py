@@ -14,8 +14,16 @@ into the port's state — the same nesting, with torch-layout tensors:
   layout (in, out, kh, kw), ``w.transpose(3, 2, 0, 1)``. With in == out
   a wrong permutation still has the right shape, so a test pins it.
 
-Every leaf of the tree must be consumed; anything left over (e.g. the
-int8 groups ``quant``/``backbone_q``) raises.
+The static-int8 groups that the reference's ``models/quant.py`` calibrates
+(``params["quant"]``, or the legacy ``params["backbone_q"]``) become the
+port's quant state (:func:`from_jax_quant`): each unit ``{wq, mult, bias,
+sa}`` keeps ``wq`` int8 in the torch layout of its float twin (conv HWIO ->
+OIHW, deconv (kh, kw, out, in) -> (in, out, kh, kw), linear (in, out) ->
+(out, in)) and ``mult``, ``bias``, ``sa`` and the ``pyr`` arrays float32;
+the uint8-direct stem's bias map (S/2, S/2, C) becomes (1, C, S/2, S/2),
+which adds to an NCHW (channels_last) conv output.
+
+Every leaf of the tree must be consumed; anything left over raises.
 """
 
 from __future__ import annotations
@@ -79,14 +87,19 @@ class _Leaves:
     def has(self, path: str) -> bool:
         return path in self.flat
 
-    def take(self, path: str) -> np.ndarray:
+    def take(self, path: str, dtype=np.float32) -> np.ndarray:
         if path not in self.flat:
             raise KeyError(f"parameter {path!r} missing from the tree")
-        return np.asarray(self.flat.pop(path), np.float32)
+        return np.asarray(self.flat.pop(path), dtype)
+
+    def done(self):
+        if self.flat:
+            raise ValueError("parameters not consumed by the port: "
+                             + ", ".join(sorted(self.flat)))
 
 
-def _t(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, np.float32, order="C"))
+def _t(a: np.ndarray, dtype=np.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype, order="C"))
 
 
 def _conv_bn(lv: _Leaves, base: str) -> dict:
@@ -103,9 +116,84 @@ def _linear(lv: _Leaves, base: str) -> dict:
     return {"w": _t(lv.take(f"{base}/w").T), "b": _t(lv.take(f"{base}/b"))}
 
 
+# int8 weight layouts: reference -> torch (the float twins' moves)
+_QLAYOUT = {"conv": (3, 2, 0, 1), "deconv": (3, 2, 0, 1), "linear": (1, 0)}
+
+
+def _qunit(lv: _Leaves, base: str, layout: str) -> dict:
+    """One calibrated unit {wq, mult, bias, sa}: wq int8 in the torch
+    layout, the rest float32. A bias map (the uint8-direct stem's, (h, w,
+    C)) becomes (1, C, h, w)."""
+    bias = lv.take(f"{base}/bias")
+    if bias.ndim == 3:
+        bias = bias.transpose(2, 0, 1)[None]
+    return {"wq": _t(lv.take(f"{base}/wq", np.int8).transpose(
+                _QLAYOUT[layout]), np.int8),
+            "mult": _t(lv.take(f"{base}/mult")), "bias": _t(bias),
+            "sa": _t(lv.take(f"{base}/sa"))}
+
+
+def _qbackbone(lv: _Leaves, base: str) -> dict:
+    q = {"stem": _qunit(lv, f"{base}/stem", "conv")}
+    if lv.has(f"{base}/stem_u8/wq"):
+        q["stem_u8"] = _qunit(lv, f"{base}/stem_u8", "conv")
+    for stage in ("res2", "res3", "res4", "res5"):
+        blocks, i = [], 0
+        while lv.has(f"{base}/{stage}/{i}/conv1/wq"):
+            blocks.append({n: _qunit(lv, f"{base}/{stage}/{i}/{n}", "conv")
+                           for n in ("conv1", "conv2", "conv3", "shortcut")
+                           if lv.has(f"{base}/{stage}/{i}/{n}/wq")})
+            i += 1
+        q[stage] = blocks
+    return q
+
+
+def _quant(lv: _Leaves, base: str) -> dict:
+    """The groups of a ``quant`` tree that are present (the reference's
+    ``prepare_quantized`` returns those of its scope)."""
+    q = {}
+    if lv.has(f"{base}/backbone/stem/wq"):
+        q["backbone"] = _qbackbone(lv, f"{base}/backbone")
+    if lv.has(f"{base}/fpn/lateral2/wq"):
+        q["fpn"] = {f"{kind}{i}": _qunit(lv, f"{base}/fpn/{kind}{i}", "conv")
+                    for i in range(2, 6) for kind in ("lateral", "output")}
+    if lv.has(f"{base}/rpn/conv/wq"):
+        q["rpn"] = {n: _qunit(lv, f"{base}/rpn/{n}", "conv")
+                    for n in ("conv", "objectness", "deltas")}
+    if lv.has(f"{base}/pyr/out_sa"):
+        q["pyr"] = {n: _t(lv.take(f"{base}/pyr/{n}"))
+                    for n in ("out_sa", "res_sa", "rpn_mult", "lat_sa")
+                    if lv.has(f"{base}/pyr/{n}")}
+    if lv.has(f"{base}/box/fc1/wq"):
+        q["box"] = {n: _qunit(lv, f"{base}/box/{n}", "linear")
+                    for n in ("fc1", "fc2")}
+    if lv.has(f"{base}/mask/conv1/wq"):
+        mask, i = {}, 1
+        while lv.has(f"{base}/mask/conv{i}/wq"):
+            mask[f"conv{i}"] = _qunit(lv, f"{base}/mask/conv{i}", "conv")
+            i += 1
+        if lv.has(f"{base}/mask/deconv/wq"):
+            mask["deconv"] = _qunit(lv, f"{base}/mask/deconv", "deconv")
+        if lv.has(f"{base}/mask/predictor/wq"):
+            mask["predictor"] = _qunit(lv, f"{base}/mask/predictor", "conv")
+        q["mask"] = mask
+    return q
+
+
+def from_jax_quant(tree) -> dict:
+    """The reference's ``params["quant"]`` (numpy arrays, or anything
+    ``np.asarray`` takes) -> the port's quant state of CPU tensors. Every
+    leaf must be consumed."""
+    lv = _Leaves({"quant": tree})
+    q = _quant(lv, "quant")
+    lv.done()
+    return q
+
+
 def from_jax_params(tree) -> dict:
     """The reference's parameter tree (numpy arrays, or anything
-    ``np.asarray`` takes) -> the port's state of float32 CPU tensors."""
+    ``np.asarray`` takes) -> the port's state of float32 CPU tensors, with
+    its int8 groups (``quant``, ``backbone_q``) where the tree has them."""
     lv = _Leaves(tree)
     backbone = {"stem": _conv_bn(lv, "backbone/stem")}
     for stage in ("res2", "res3", "res4", "res5"):
@@ -133,22 +221,38 @@ def from_jax_params(tree) -> dict:
                               .transpose(3, 2, 0, 1)),
                       "b": _t(lv.take("mask_head/deconv/b"))}
     mask["predictor"] = _conv_b(lv, "mask_head/predictor")
-    if lv.flat:
-        raise ValueError("parameters not consumed by the port: "
-                         + ", ".join(sorted(lv.flat)))
-    return {"backbone": backbone, "fpn": fpn, "rpn": rpn,
-            "box_head": box, "mask_head": mask}
+    state = {"backbone": backbone, "fpn": fpn, "rpn": rpn,
+             "box_head": box, "mask_head": mask}
+    quant = _quant(lv, "quant")
+    if quant:
+        state["quant"] = quant
+    if lv.has("backbone_q/stem/wq"):
+        state["backbone_q"] = _qbackbone(lv, "backbone_q")
+    lv.done()
+    return state
 
 
-def state_to(state, device, dtype):
-    """Every tensor of the state on ``device`` in ``dtype``, convs in
-    channels_last memory. Tensors already there are returned as they are,
-    so a prepared state passes through at the cost of a tree walk."""
-    if isinstance(state, dict):
-        return {k: state_to(v, device, dtype) for k, v in state.items()}
-    if isinstance(state, list):
-        return [state_to(v, device, dtype) for v in state]
-    t = state.to(device=device, dtype=dtype)
+# groups of the state placed on the device with their own dtypes (int8
+# weights, float32 scales); every other tensor takes the compute dtype
+QUANT_GROUPS = ("quant", "backbone_q")
+
+
+def _place(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _place(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_place(v, device, dtype) for v in tree]
+    t = tree.to(device=device, dtype=dtype or tree.dtype)
     if t.dim() == 4:
         t = t.contiguous(memory_format=torch.channels_last)
     return t
+
+
+def state_to(state: dict, device, dtype) -> dict:
+    """Every tensor of the state on ``device``, convs in channels_last
+    memory: the float parameters in ``dtype``, the int8 groups
+    (``QUANT_GROUPS``) in their own dtypes, so that ``mult`` and the scales
+    stay float32. Tensors already there are returned as they are, so a
+    prepared state passes through at the cost of a tree walk."""
+    return {k: _place(v, device, None if k in QUANT_GROUPS else dtype)
+            for k, v in state.items()}

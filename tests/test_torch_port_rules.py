@@ -6,6 +6,7 @@ their kernels do not take."""
 
 import ast
 import os
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ import torch
 
 from roadsurf_tpu_torch.engine import TileInferenceEngine
 from roadsurf_tpu_torch.models import fast_profile, forward_inference, \
-    init_params
+    init_params, prepare_quantized
 from roadsurf_tpu_torch.ops import roi_align as tra
 from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused
 from roadsurf_tpu_torch.utils.weights import from_jax_params
@@ -87,21 +88,52 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(state_and_cfg):
         forward_inference(state, imgs, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TileInferenceEngine(state, cfg, batch_size=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare_quantized(state, imgs, replace(cfg, int8_scope="full"))
     out = forward_inference(state, imgs, cfg, device="cpu")
     assert out["boxes"].device.type == "cpu"
     eng = TileInferenceEngine(state, cfg, batch_size=1, device="cpu")
     assert next(eng.run([imgs]))["boxes"].shape == (1, 8, 4)
 
 
-def test_int8_configs_are_refused(state_and_cfg):
-    from dataclasses import replace
+@pytest.fixture(scope="module")
+def quant_64(state_and_cfg):
+    """The port's own calibration of the random full-width state on two
+    64 px tiles (int8 full + pyramid), and those tiles."""
+    state, cfg = state_and_cfg
+    imgs = np.random.default_rng(0).integers(0, 255, (2, 64, 64, 3),
+                                             np.uint8)
+    cfg = replace(cfg, int8_scope="full", int8_pyramid=True)
+    return prepare_quantized(state, imgs, cfg, device="cpu"), imgs
+
+
+@pytest.mark.parametrize("knob", [{"int8_scope": "full"},
+                                  {"int8_backbone": True},
+                                  {"int8_pyramid": True}])
+def test_int8_configs_follow_the_quant_tree(knob, state_and_cfg, quant_64,
+                                            monkeypatch):
+    """An int8 config whose state has no quant tree runs in the compute
+    dtype, as the reference's _quant_tree decides; with one it runs the
+    int8 backbone (``int8_pyramid`` alone asks for no int8 group)."""
+    from roadsurf_tpu_torch.models import mask_rcnn
 
     state, cfg = state_and_cfg
-    for knob in ({"int8_scope": "full"}, {"int8_backbone": True},
-                 {"int8_pyramid": True}):
-        with pytest.raises(NotImplementedError, match="int8"):
-            forward_inference(state, np.zeros((1, 256, 256, 3), np.uint8),
-                              replace(cfg, **knob), device="cpu")
+    quant, imgs = quant_64
+    calls = []
+    orig = mask_rcnn.resnet_forward_int8
+    monkeypatch.setattr(mask_rcnn, "resnet_forward_int8",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    icfg = replace(cfg, **knob)
+    plain = forward_inference(state, imgs, cfg, device="cpu")
+    bare = forward_inference(state, imgs, icfg, device="cpu")
+    assert not calls
+    for k, v in plain.items():
+        torch.testing.assert_close(bare[k], v, rtol=0, atol=0, msg=k)
+    with_tree = dict(state, quant=quant)
+    out = forward_inference(with_tree, imgs, icfg, device="cpu")
+    assert len(calls) == (0 if "int8_pyramid" in knob else 1)
+    assert out["boxes"].shape == plain["boxes"].shape
+    assert bool(torch.isfinite(out["mask_logits"]).all())
 
 
 def test_dispatcher_routes_fixed_small_maps_to_k1_and_the_rest_to_k2(
@@ -116,9 +148,11 @@ def test_dispatcher_routes_fixed_small_maps_to_k1_and_the_rest_to_k2(
     calls = []
 
     def recorder(name, fn):
-        def wrapped(feats, boxes, lvl, out_size, sampling, min_level):
+        def wrapped(feats, boxes, lvl, out_size, sampling, min_level,
+                    feat_scales=None):
             calls.append((name, feats[0].shape[1], sampling))
-            return fn(feats, boxes, lvl, out_size, sampling, min_level)
+            return fn(feats, boxes, lvl, out_size, sampling, min_level,
+                      feat_scales)
         return wrapped
 
     monkeypatch.setattr(tra, "roi_align_fused",
@@ -148,6 +182,40 @@ def test_dispatcher_routes_fixed_small_maps_to_k1_and_the_rest_to_k2(
         tra.roi_align_multilevel(pyramid(64), boxes, 7, sampling=-1)
 
 
+@pytest.mark.parametrize("side,sampling,want", [(64, 2, "K1"), (64, 0, "K2"),
+                                                (200, 2, "K2")])
+def test_dispatcher_routes_int8_levels_like_bf16_ones(side, sampling, want,
+                                                      monkeypatch):
+    """Int8 pyramid levels with their scales take the bf16 levels' route,
+    and a constant int8 map pools to its dequantized constant."""
+    calls = []
+
+    def recorder(name, fn):
+        def wrapped(feats, boxes, lvl, out_size, sampling, min_level,
+                    feat_scales=None):
+            calls.append((name, feats[0].dtype, feat_scales is not None))
+            return fn(feats, boxes, lvl, out_size, sampling, min_level,
+                      feat_scales)
+        return wrapped
+
+    monkeypatch.setattr(tra, "roi_align_fused",
+                        recorder("K1", tra.roi_align_fused))
+    monkeypatch.setattr(tra, "roi_align_fused_blocked",
+                        recorder("K2", tra.roi_align_fused_blocked))
+    feats = [torch.full((1, side // 2 ** i, side // 2 ** i, 2), 3,
+                        dtype=torch.int8) for i in range(4)]
+    scales = torch.tensor([0.5, 0.25, 0.125, 1.0, 1.0])
+    boxes = torch.tensor([[[0.0, 0.0, 40.0, 30.0], [8.0, 4.0, 9.0, 60.0]]])
+    out = tra.roi_align_multilevel(feats, boxes, 7, sampling=sampling,
+                                   feat_scales=scales)
+    assert calls == [(want, torch.int8, True)]
+    assert out.dtype == torch.float32
+    lvl = tra.level_assignment(boxes, 224, 4, 2, 2 + tra.reachable_levels(
+        feats) - 1)
+    want_vals = (3 * scales[lvl.long()])[..., None, None, None]
+    torch.testing.assert_close(out, want_vals.expand_as(out))
+
+
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     """The checks a CUDA call goes through, exercised on meta tensors (no
     data, no device): dtype, layout and shapes are refused with an error."""
@@ -172,6 +240,35 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         _check(feats * 3, boxes, lvl, 7, 2)
     assert roi_align_fused.launches == 0
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_pooler_wrappers_take_int8_levels_only_with_their_scales(kernel):
+    """The int8 mode's checks, on meta tensors: int8 levels need float32
+    scales, one a level or more, on the boxes' device; bf16 levels take
+    none."""
+    from roadsurf_tpu_torch.ops import roi_align_blocked_kernel as k2
+    from roadsurf_tpu_torch.ops import roi_align_kernel as k1
+
+    mod = k1 if kernel == "K1" else k2
+    B, R, C = 2, 4, 8
+    q = tuple(torch.empty((B, s, s, C), dtype=torch.int8, device="meta")
+              for s in (16, 8, 4))
+    boxes = torch.empty((B, R, 4), device="meta")
+    lvl = torch.empty((B, R), dtype=torch.int32, device="meta")
+    scales = torch.empty(5, device="meta")
+    mod._check(q, boxes, lvl, 7, 2, scales)
+    with pytest.raises(TypeError):
+        mod._check(q, boxes, lvl, 7, 2)
+    with pytest.raises(TypeError):
+        mod._check(tuple(f.to(torch.bfloat16) for f in q), boxes, lvl, 7, 2,
+                   scales)
+    for bad in (scales.double(), scales[:2], scales.reshape(5, 1),
+                torch.empty(5)):
+        with pytest.raises(ValueError, match="feat_scales"):
+            mod._check(q, boxes, lvl, 7, 2, bad)
+    assert mod.roi_align_fused.launches_int8 == 0 if kernel == "K1" \
+        else mod.roi_align_fused_blocked.launches_int8 == 0
 
 
 def test_blocked_kernel_wrapper_rejects_what_the_kernel_does_not_take():
