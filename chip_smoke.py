@@ -16,13 +16,21 @@ exits non-zero:
    (``roi_align_blocked``): the parity profile's poolers (B=16, C=256,
    P2..P5 at 800 px; box R=1000 P=7, mask R=100 P=14, adaptive) and the
    box pooler at s=2. Both poolers also in their int8 mode, at the same
-   shapes, on int8 levels quantized from those (one scale a level). K3
-   (``nms``): the parity profile's NMS problems (RPN: 16·5 problems of
-   1000 boxes at t=0.7; classes: 16 problems of 2000 boxes at t=0.5),
-   suppression chains, equal scores and all-padded problems, held equal
-   bit for bit. K4 (``int8_gemm``): the fast profile's backbone 1x1 convs
-   at B=64 and box FC1 as GEMMs, raw and with the bf16 and int8
-   epilogues, each held equal bit for bit, beside ``torch._int_mm``.
+   shapes, on int8 levels quantized from those (one scale a level); beside
+   the byte bound each K2 case reports ``box_bytes``, the cells each box
+   touches summed over the boxes, and edge batches also cross K2's work
+   split (R of 37 and 13, a row wider than a staged chunk, a short last
+   band of output rows, P = 28's four columns a warp). K3 (``nms``): the
+   parity profile's NMS problems (RPN: 16·5 problems of 1000 boxes at
+   t=0.7; classes: 16 problems of 2000 boxes at t=0.5), N of 1, 63, 64,
+   65, 130 and 3000, suppression
+   chains, equal scores and all-padded problems, held equal bit for bit,
+   its pair phase's words equal to ``suppression_words`` and the plain
+   mirror of its sweep on them equal too; the two phases' device times
+   (torch.profiler) beside the call's. K4 (``int8_gemm``): the fast
+   profile's backbone 1x1 convs at B=64 and box FC1 as GEMMs, raw and
+   with the bf16 and int8 epilogues, each held equal bit for bit, beside
+   ``torch._int_mm``.
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
    64 random 256 px tiles, the last one short; K1 must have been launched
@@ -84,6 +92,12 @@ PB, PSIDE = 16, 800
 PLEVELS = (200, 100, 50, 25)
 PPOOLERS = (("box", 1000, 7, 0), ("mask", 100, 14, 0),
             ("box_s2", 1000, 7, 2))
+# K2's work split crossed: R that fills no round count of blocks, and the
+# edge boxes (the full-width road at P2 spans more cells than one staged
+# chunk holds; P = 14 leaves a short last band of output rows; P = 28 runs
+# four output columns a warp in bands of two rows)
+PSPLIT = (("box_r37", 37, 7, 0), ("mask_r13", 13, 14, 0),
+          ("p28_r13", 13, 28, 0))
 ROOT = os.path.dirname(os.path.abspath(__file__))
 YAML = "config/detectron2_config_3bands.yaml"
 PAIR_FLOPS = 12                 # f32 operations of one NMS pair test
@@ -286,10 +300,13 @@ def _quantized(feats):
 
 
 def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
-    """(bytes, FLOPs) a pooling call needs: the feature cells its boxes'
-    taps touch (each read once, at the levels' element size), boxes and
-    levels read, the bf16 output written. FLOPs: K1's form (``per_tap``)
-    does 2 per tap of each valid sample and channel; K2's separable form,
+    """(bytes, FLOPs, box bytes) a pooling call needs: the feature cells
+    its boxes' taps touch (each read once, at the levels' element size),
+    boxes and levels read, the bf16 output written; box bytes are the
+    cells each box touches, summed over the boxes (what a design that
+    reads every box's region apart moves, from L2 where boxes overlap).
+    FLOPs: K1's form (``per_tap``) does 2 per tap of each valid sample
+    and channel; K2's separable form,
     for each output bin (p, q) and channel, 2 per cell of row p's non-zero
     y-weights times column q's non-zero x-weights, and 2 per non-zero
     y-weight; int8 levels add 1 per touched cell and channel (its
@@ -300,6 +317,7 @@ def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
     nbytes = boxes.numel() * 4 + lvl.numel() * 4 \
         + boxes.shape[0] * boxes.shape[1] * P * P * C * 2
     flops = 0.0
+    box_cells = 0
     for b in range(boxes.shape[0]):      # one image at a time: memory
         ws = axis_weights(tuple(f[b:b + 1] for f in feats), boxes[b:b + 1],
                           lvl[b:b + 1], P, s, 2)
@@ -309,6 +327,7 @@ def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
                     & (wy > 0).any(dim=(2, 3))[..., None]).float()
             touched = torch.einsum("brh,brw->bhw", rows, cols) > 0
             nbytes += int(touched.sum()) * C * item
+            box_cells += int((rows.sum(-1) * cols.sum(-1)).sum())
             if feats[0].dtype == torch.int8:
                 flops += float(touched.sum()) * C
             if per_tap:
@@ -321,7 +340,7 @@ def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
                 nx = (wx != 0).sum(-1).float()
                 flops += float((ny.sum(-1) * (nx.sum(-1) + P)).sum()) \
                     * 2 * C
-    return nbytes, flops
+    return nbytes, flops, box_cells * C * item
 
 
 def _pool_case(kernel, plain, feats, boxes, P, s, plain_iters: int,
@@ -346,13 +365,15 @@ def _pool_case(kernel, plain, feats, boxes, P, s, plain_iters: int,
                 lvl.flatten(), minlength=n_lev).tolist(),
             **_agreement(got, ref)}
     del ref
+    nbytes, flops, box_bytes = _pool_work(feats, boxes, lvl, P, s, per_tap)
     case.update(
         ms=_time_ms(lambda: kernel(feats, boxes, lvl, P, s,
                                    feat_scales=scales), 20),
         plain_ms=_time_ms(lambda: plain(feats, boxes, lvl, P, s,
                                         feat_scales=scales),
                           plain_iters, warmup=1),
-        **_bound(*_pool_work(feats, boxes, lvl, P, s, per_tap)))
+        box_bytes=box_bytes, box_bytes_ms=box_bytes / HBM_BYTES_PER_S * 1e3,
+        **_bound(nbytes, flops))
     return case
 
 
@@ -386,8 +407,8 @@ def phase_kernels_k2(int8: bool) -> list:
     name = "roi_align_blocked_int8" if int8 else "roi_align_blocked"
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = []
-    for edge in (False, True):
-        for pooler, R, P, s in PPOOLERS:
+    for edge, poolers in ((False, PPOOLERS), (True, PPOOLERS + PSPLIT)):
+        for pooler, R, P, s in poolers:
             feats, boxes = _parity_pool_inputs(g, R, edge)
             case = _pool_case(roi_align_fused_blocked,
                               roi_align_fused_blocked_ref, feats, boxes, P,
@@ -440,7 +461,11 @@ def _nms_cases(g):
     ties_b, _ = _nms_problems(g, 4, 1000, 200.0)
     pad_b, pad_s = _nms_problems(g, 3, 1000, 200.0)
     pad_s[1:] = NEG_INF                                   # all padded
-    return [
+    # the word layout crossed: N not a multiple of 64, one word, and more
+    # words than a lane's first slot holds (N > 2048)
+    sizes = [(f"n{n}", *_nms_problems(g, 4, n, 200.0), 0.5)
+             for n in (1, 63, 64, 65, 130, 3000)]
+    return sizes + [
         ("rpn", rpn_b, rpn_s, 0.7),
         ("classes", cls_b, cls_s, 0.5),
         # A kills B, B would kill C: neighbours at IoU 0.25, t 0.2
@@ -453,10 +478,32 @@ def _nms_cases(g):
     ]
 
 
+def _device_ms(fn, iters: int) -> dict:
+    """Mean device time of each kernel ``fn`` launches, per call of ``fn``
+    (torch.profiler, CUPTI), after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            out[e.key] = us / 1e3 / iters
+    return out
+
+
 def phase_kernels_k3() -> list:
     from roadsurf_tpu_torch.ops import nms
     from roadsurf_tpu_torch.ops.nms_kernel import nms_keep_mask, \
-        nms_keep_mask_ref
+        nms_keep_mask_ref, pair_phase, row_words, suppression_words, \
+        sweep_phase, sweep_words
 
     g = torch.Generator(device="cuda").manual_seed(2)
     cases = []
@@ -468,9 +515,16 @@ def phase_kernels_k3() -> list:
         ss = torch.gather(scores, -1, order).contiguous()
         got = nms_keep_mask(sb, ss, t)
         ref = nms_keep_mask_ref(sb, ss, t)
+        # the pair phase's words bit for bit (rows' words below their own
+        # tile, and the padding word, are never written: zeros on both
+        # sides), and the plain mirror of the sweep on them
+        N = scores.shape[-1]
+        words = torch.zeros(ss.shape + (row_words(N),), dtype=torch.int64,
+                            device=ss.device)
+        pair_phase(sb, ss, t, words)
+        mirror = suppression_words(sb, ss, t)
         # the whole exact NMS: on the card (K3) against on the CPU (the
         # plain version)
-        N = scores.shape[-1]
         ks, ki = nms.nms_fixed(boxes, scores, t, N)
         rs, ri = nms.nms_fixed(boxes.cpu(), scores.cpu(), t, N)
         ks, ki = ks.cpu(), ki.cpu()
@@ -478,6 +532,9 @@ def phase_kernels_k3() -> list:
         case = {"case": name, "main": name in ("rpn", "classes"),
                 "problems": scores.numel() // N, "N": N, "iou_thresh": t,
                 "mismatches": int((got != ref).sum()),
+                "word_mismatches": int((words != mirror).sum()),
+                "sweep_mirror_mismatches": int(
+                    (sweep_words(mirror, ss) != ref).sum()),
                 "nms_fixed_mismatches": int((ks != rs).sum()
                                             + (ki != ri).sum()),
                 "kept": int(ref.sum()), "valid": int(valid.sum())}
@@ -487,14 +544,20 @@ def phase_kernels_k3() -> list:
             - torch.arange(N, device=ref.device)
         pairs = float((later.clamp(min=0) * ref).sum())
         nbytes = sb.numel() * 4 + ss.numel() * 4 + ref.numel()
+        dev = _device_ms(lambda: sweep_phase(pair_phase(sb, ss, t, words),
+                                             ss), 20)
         case.update(
+            pair_ms=sum(v for k, v in dev.items() if "nms_pair" in k),
+            sweep_ms=sum(v for k, v in dev.items() if "nms_sweep" in k),
             ms=_time_ms(lambda: nms_keep_mask(sb, ss, t), 20),
             plain_ms=_time_ms(lambda: nms_keep_mask_ref(sb, ss, t), 3,
                               warmup=1),
             pairs=pairs, **_bound(nbytes, pairs * PAIR_FLOPS))
         _emit({"phase": "kernels", "kernel": "nms", **case})
         _require(case["mismatches"] == 0
-                 and case["nms_fixed_mismatches"] == 0,
+                 and case["nms_fixed_mismatches"] == 0
+                 and case["word_mismatches"] == 0
+                 and case["sweep_mirror_mismatches"] == 0,
                  f"nms keep mask differs from its plain version: {case}")
         if name == "padded":
             _require(not bool(got[1:].any()), "a padded problem kept a box")
@@ -827,8 +890,13 @@ def _record(name, source, replaces, launches, cases, err_key, per_key):
             "bound_ms": sum(c["bound_ms"] for c in timed),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": sum(lib) if lib and None not in lib else None,
+            # K2: the bytes a per-box design moves; K3: its two phases
+            **{k: sum(c[k] for c in timed) for k in (
+                "box_bytes", "box_bytes_ms", "pair_ms", "sweep_ms")
+               if timed and k in timed[0]},
             "per_call": {c[per_key]: {k: c.get(k) for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "box_bytes_ms", "pair_ms", "sweep_ms") if k in c}
                 for c in timed}}
 
 

@@ -4,27 +4,54 @@
 // a level -- in, bf16 (B, R, P, P, C) out, f32 accumulation.
 //
 // Replaces the TPU kernel roi_align_fused_blocked (roadsurf_tpu/ops/
-// roi_align_pallas.py:471) in both its modes; the wrapper, the plain PyTorch
-// version and the note on what bounds this kernel are in
-// roadsurf_tpu_torch/ops/roi_align_blocked_kernel.py. Int8 levels: each cell
-// is the bf16 value bf16(q * s_l) of the plain version's dequantized level,
-// one convert per cell read; the scale of the box's level comes from
-// `scales`. (The TPU kernel scales the accumulated row instead,
-// roi_align_pallas.py:453-457.)
+// roi_align_pallas.py:471) in both its modes; the wrapper and the plain
+// PyTorch version are in roadsurf_tpu_torch/ops/roi_align_blocked_kernel.py.
+// Int8 levels: each cell is the bf16 value bf16(q * s_l) of the plain
+// version's dequantized level (one __fmul_rn and one rounding); the scale of
+// the box's level comes from `scales`. (The TPU kernel scales the
+// accumulated row instead, roi_align_pallas.py:453-457.)
 //
-// Grid: one block per (image, box); threads over channel pairs. The block
-// first evaluates the box's interpolation weights along y for all P rows
-// and along x for all P columns, over the box's tap span only, into shared
-// memory, and records each row's and column's non-zero range; then every
-// thread computes out[p, q, c] = sum_y wy[p, y] * sum_x wx[q, x] * f[y, x, c]
-// for its channels.
-//
+// What bounds it on an H100: bytes and their latency, then instruction
+// issue. Each cell a box touches is read once per box (from L2: the
+// proposals of an image overlap) and costs one multiply-add per channel,
+// some 300x below the card's ridge; the output is 2 bytes per bin and
+// channel. What the design does about it:
+//   * Work split. A block takes (image, box, band of output rows). Its
+//     warps split the output columns q (1, 2 or 4 a warp), a lane holds 8
+//     channels (one 16-byte bf16 vector), and the band's bins stay in
+//     registers. P = 7: one band of 7 rows, 7 warps; P = 14: bands of 4
+//     rows, 7 warps of 2 columns, so the mask pooler's 1,600 boxes make
+//     6,400 blocks.
+//   * Weights first. Each block evaluates its band's y-weights and all
+//     x-weights into shared memory, each bin's over its own tap span, with
+//     each bin's non-zero range and, per row, the band rows it weighs; only
+//     the rows and columns of non-zero weight are staged.
+//   * Staging. That region is cut into chunks -- whole rows when a row
+//     fits, else row segments -- in a ring of kStages copy slots. One
+//     thread issues one bulk copy (cp.async.bulk, the non-tensor TMA) per
+//     row segment, contiguous in NHWC, its bytes counted on the slot's
+//     mbarrier, so the next chunk's copy overlaps the current chunk's sums.
+//     One block barrier a chunk.
+//   * Arithmetic. Per staged row the x-pass t[q] = sum_x wx[q, x] f[y, x]
+//     runs once (carried across the segments of a long row; two rows at a
+//     time when a warp has one column); then acc[p, q] += wy[p, y] t[q] for
+//     the band rows that weigh y.
+//   * Int8 levels. Chunks are copied as int8, half the bytes. Once a chunk
+//     lands, the block dequantizes each of its cells once -- 16 channels a
+//     thread from one 16-byte load, each bf16(q * s_l) with one __fmul_rn
+//     and one rounding, the plain version's dequantized value -- into a
+//     bf16 work buffer, which the x-pass then reads as it reads a bf16
+//     chunk: a cell read by several output columns is converted once. The
+//     work buffer is refilled once every warp is done with it (a second
+//     barrier a chunk, after the first chunk). The convert is still what
+//     int8 levels cost over bf16 ones: the bytes they save bound nothing.
 // The weights are those of the plain version (ops/roi_align_kernel.py:
 // bin_sizes, _axis_weight_matrix, _axis_weights_adaptive_at), operation for
 // operation, each explicitly rounded (no contraction into FMA), so that the
 // floor/ceil decisions of the series and the [-1, dim] border rule fall the
-// same way in both. The adaptive series divides (lo + p * bin) by the stride
-// after the sum, as the plain version (and the reference's XLA form,
+// same way in both (a division by the stride, a power of two, is the product
+// with its exact reciprocal). The adaptive series divides (lo + p * bin) by
+// the stride after the sum, as the plain version (and the reference's XLA form,
 // roadsurf_tpu/ops/roi_align.py:148) does; the TPU kernel divides lo and bin
 // by the stride first (roi_align_pallas.py:307-313), which rounds
 // differently.
@@ -36,13 +63,28 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 4;
 constexpr int kMaxSampling = 16;
 constexpr int kMaxOut = 32;
 constexpr int kMaxSmem = 232448;
-constexpr int kThreads = 128;
+constexpr int kLaneC = 8;              // channels a lane holds
+constexpr int kMaxC = 32 * kLaneC;     // channels a block holds
+constexpr int kMaxWarps = 8;           // output columns a block's warps split
+constexpr int kStages = 2;             // the staging ring's copy slots
+constexpr int kStageBytes = 49152;     // a slot of bf16 cells
+constexpr int kStageBytes8 = 24576;    // a slot of int8 cells; a bf16 work
+                                       // buffer of twice that holds its cells
+
+// Bytes of the staging ring (and, for int8 levels, the work buffer) in
+// front of the weight tables.
+__host__ __device__ constexpr int ring_bytes(bool int8) {
+  return int8 ? kStages * kStageBytes8 + 2 * kStageBytes8
+              : kStages * kStageBytes;
+}
 
 struct Pyramid {
   const void* feat[kMaxLevels];
@@ -56,7 +98,7 @@ struct Pyramid {
 struct Axis {
   float lo;      // box start, image pixels
   float bin;     // bin size, image pixels
-  float stride;  // level stride
+  float inv;     // 1 / level stride: a power of two, so x * inv == x / stride
   float dim;     // level side, cells
   int sampling;  // 0: adaptive
   float n;       // adaptive: samples per bin
@@ -64,26 +106,29 @@ struct Axis {
   float dl;      // adaptive: guarded spacing (1 for zero-size bins)
 };
 
-__device__ __forceinline__ Axis make_axis(float lo, float hi, int P,
-                                          float stride, int dim,
-                                          int sampling) {
+__device__ __forceinline__ Axis make_axis(float lo, float bin, float stride,
+                                          int dim, int sampling) {
   Axis a;
   a.lo = lo;
-  a.bin = __fdiv_rn(__fsub_rn(hi, lo), static_cast<float>(P));
-  a.stride = stride;
+  a.bin = bin;
+  a.inv = 1.0f / stride;
   a.dim = static_cast<float>(dim);
   a.sampling = sampling;
-  const float bins = __fdiv_rn(a.bin, stride);
+  const float bins = __fmul_rn(bin, a.inv);
   a.n = fmaxf(ceilf(bins), 1.0f);
   a.dt = __fdiv_rn(bins, a.n);
   a.dl = a.dt > 0.0f ? a.dt : 1.0f;
   return a;
 }
 
+// Image position of bin p's start: lo + p * bin.
+__device__ __forceinline__ float bin_start(float lo, float bin, int p) {
+  return __fadd_rn(lo, __fmul_rn(static_cast<float>(p), bin));
+}
+
 // Sample i of bin p sits at A + (i + 0.5) * dl.
 __device__ __forceinline__ float bin_origin(const Axis& a, int p) {
-  float v = __fadd_rn(a.lo, __fmul_rn(static_cast<float>(p), a.bin));
-  v = __fsub_rn(__fdiv_rn(v, a.stride), 0.5f);
+  float v = __fsub_rn(__fmul_rn(bin_start(a.lo, a.bin, p), a.inv), 0.5f);
   return __fadd_rn(v, __fmul_rn(0.5f, __fsub_rn(a.dt, a.dl)));
 }
 
@@ -107,7 +152,8 @@ __device__ __forceinline__ float2 series(float i0, float i1, float A,
 }
 
 // Adaptive weight of cell d (0 <= d <= dim - 1) in bin p.
-__device__ float adaptive_weight(const Axis& a, int p, float d) {
+__device__ __forceinline__ float adaptive_weight(const Axis& a, int p,
+                                                 float d) {
   const float A = bin_origin(a, p);
   const float hi1 = floorf(tpos(d, A, a.dl));
   const float2 r1 =
@@ -136,7 +182,8 @@ __device__ float adaptive_weight(const Axis& a, int p, float d) {
 }
 
 // Fixed-grid weight of cell d in bin p: the tent sum over the s samples.
-__device__ float fixed_weight(const Axis& a, int p, float d) {
+__device__ __forceinline__ float fixed_weight(const Axis& a, int p,
+                                              float d) {
   float m = 0.0f;
   const float last = __fsub_rn(a.dim, 1.0f);
   for (int s = 0; s < a.sampling; ++s) {
@@ -144,7 +191,7 @@ __device__ float fixed_weight(const Axis& a, int p, float d) {
     float c = __fadd_rn(static_cast<float>(p), u);
     c = __fmul_rn(c, a.bin);
     c = __fadd_rn(a.lo, c);
-    c = __fdiv_rn(c, a.stride);
+    c = __fmul_rn(c, a.inv);
     c = __fsub_rn(c, 0.5f);
     if (c >= -1.0f && c <= a.dim) {
       const float cc = fminf(fmaxf(c, 0.0f), last);
@@ -154,123 +201,396 @@ __device__ float fixed_weight(const Axis& a, int p, float d) {
   return __fdiv_rn(m, static_cast<float>(a.sampling));
 }
 
-__device__ __forceinline__ float axis_weight(const Axis& a, int p, float d) {
-  return a.sampling == 0 ? adaptive_weight(a, p, d) : fixed_weight(a, p, d);
-}
-
-// Cells [s0, s1] that can carry weight: every sample lies between the box
-// edges (up to rounding), and a sample's taps are floor(c) and floor(c) + 1;
-// one cell of margin on each side covers the rounding.
-__device__ __forceinline__ int2 tap_span(float lo, float hi, float stride,
+// Cells [s0, s1] that can carry weight for samples between image positions
+// lo and hi: a sample's taps are floor(c) and floor(c) + 1, and one cell of
+// margin on each side covers the rounding.
+__device__ __forceinline__ int2 tap_span(float lo, float hi, float inv,
                                          int dim) {
   const float last = static_cast<float>(dim - 1);
-  const float a = floorf(fminf(lo, hi) / stride - 0.5f) - 1.0f;
-  const float b = floorf(fmaxf(lo, hi) / stride - 0.5f) + 2.0f;
+  const float a = floorf(fminf(lo, hi) * inv - 0.5f) - 1.0f;
+  const float b = floorf(fmaxf(lo, hi) * inv - 0.5f) + 2.0f;
   return make_int2(static_cast<int>(fminf(fmaxf(a, 0.0f), last)),
                    static_cast<int>(fminf(fmaxf(b, 0.0f), last)));
 }
 
-// Weights of bins 0..P-1 at the cells of `span` into w[p * side + cell -
-// span.x]; lo[p], hi[p] get the first and last cell of non-zero weight.
-__device__ __forceinline__ void fill_weights(const Axis& a, int2 span, int P,
-                                             int side, float* w, int* lo,
-                                             int* hi) {
-  const int n = span.y - span.x + 1;
-  for (int i = threadIdx.x; i < P * n; i += blockDim.x) {
-    const int p = i / n;
-    const int cell = span.x + i % n;
-    const float v = axis_weight(a, p, static_cast<float>(cell));
-    w[p * side + cell - span.x] = v;
+// Weights of bins p0 .. p0 + nb - 1 at cells s0 .. s0 + n - 1 into
+// w[i * n + cell - s0], each bin's evaluated over its own tap span only
+// (the other cells weigh 0 and are never read); lo[i], hi[i] get the first
+// and last cell of non-zero weight, and bit i of mask[cell - s0] (when
+// given) is set where bin i's weight is non-zero.
+__device__ __forceinline__ void fill_weights(const Axis& a, int p0, int nb,
+                                             int s0, int n, float* w,
+                                             int* lo, int* hi, int* mask) {
+  // a bin's tap span holds at most ceil(|bin| / stride) + 4 cells; one
+  // more covers the rounding of the bin edges
+  const int span =
+      min(n, static_cast<int>(ceilf(fabsf(a.bin) * a.inv)) + 5);
+  for (int k = threadIdx.x; k < nb * span; k += blockDim.x) {
+    const int i = k / span;
+    const int2 t = tap_span(bin_start(a.lo, a.bin, p0 + i),
+                            bin_start(a.lo, a.bin, p0 + i + 1), a.inv,
+                            static_cast<int>(a.dim));
+    const int cell = max(t.x, s0) + k - i * span;
+    if (cell > min(t.y, s0 + n - 1)) continue;
+    const float d = static_cast<float>(cell);
+    const float v = a.sampling == 0 ? adaptive_weight(a, p0 + i, d)
+                                    : fixed_weight(a, p0 + i, d);
+    w[i * n + cell - s0] = v;
     if (v != 0.0f) {
-      atomicMin(&lo[p], cell);
-      atomicMax(&hi[p], cell);
+      atomicMin(&lo[i], cell);
+      atomicMax(&hi[i], cell);
+      if (mask != nullptr) atomicOr(&mask[cell - s0], 1 << i);
     }
   }
 }
 
-// Two neighbouring channels of a level as f32; int8 ones dequantized to
-// their bf16 values.
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p, float) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// A lane's 8 channels of a staged bf16 cell as f32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
 }
 
-__device__ __forceinline__ float dequant(signed char q, float s) {
-  return __bfloat162float(
-      __float2bfloat16_rn(__fmul_rn(static_cast<float>(q), s)));
+// 16 int8 channels dequantized to their bf16 values bf16(q * s): q + 128 in
+// the low byte of 2^23's bits is 2^23 + 128 + q exactly, then one product
+// each, rounded to bf16 two at a time.
+__device__ __forceinline__ void dequant16(uint4 u, float s,
+                                          __nv_bfloat16* dst) {
+  const unsigned w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                         u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+  unsigned o[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const unsigned sel = 0x7440u | (2 * (k % 2));
+    const float a = __fsub_rn(
+        __uint_as_float(__byte_perm(w[k / 2], 0x4B000000u, sel)), 8388736.0f);
+    const float b = __fsub_rn(
+        __uint_as_float(__byte_perm(w[k / 2], 0x4B000000u, sel + 1)),
+        8388736.0f);
+    const __nv_bfloat162 h =
+        __floats2bfloat162_rn(__fmul_rn(a, s), __fmul_rn(b, s));
+    o[k] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  d[1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
-__device__ __forceinline__ float2 load2(const int8_t* p, float s) {
-  const char2 v = *reinterpret_cast<const char2*>(p);
-  return make_float2(dequant(v.x, s), dequant(v.y, s));
-}
+// A chunk of the staged region: rows y .. y + nr - 1, cells xs .. xs + ncx
+// - 1.
+struct Chunk {
+  int y, nr, xs, ncx;
+};
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// The region [rx0, rx0 + nx) x [ry0, ry0 + ny) in chunks of at most `cap`
+// cells: rows_per whole rows when a row fits, else segs segments a row.
+struct Region {
+  int rx0, nx, ry0, ny, cap, rows_per, segs, chunks;
+
+  __device__ __forceinline__ Chunk chunk(int c) const {
+    Chunk k;
+    if (segs == 1) {
+      k.y = ry0 + c * rows_per;
+      k.nr = min(rows_per, ry0 + ny - k.y);
+      k.xs = rx0;
+      k.ncx = nx;
+    } else {
+      k.y = ry0 + c / segs;
+      k.nr = 1;
+      k.xs = rx0 + (c % segs) * cap;
+      k.ncx = min(cap, rx0 + nx - k.xs);
+    }
+    return k;
+  }
+};
+
+// Block (box, band of output rows): see the note at the top. Warp w takes
+// the output columns w, w + warps, ... (QPW of them), every row of the band.
+// With two columns a warp (P = 14) the registers are held to two blocks an
+// SM, which ran faster than one block of more registers.
+template <typename T, int QPW>
+__global__ void __launch_bounds__(32 * kMaxWarps, QPW == 2 ? 2 : 1)
     roi_align_blocked_kernel(Pyramid pyr, const float* __restrict__ scales,
                              const float* __restrict__ boxes,
                              const int* __restrict__ lvl,
                              __nv_bfloat16* __restrict__ out, int R, int C,
                              int P, int sampling, int side) {
-  extern __shared__ float smem[];
-  float* wy = smem;             // [P][side]
-  float* wx = smem + P * side;  // [P][side]
-  int* ya = reinterpret_cast<int*>(wx + P * side);
-  int* yb = ya + P;
-  int* xa = yb + P;
+  constexpr int kBand = kMaxWarps / QPW;  // band rows a block holds
+  constexpr bool kPair = QPW == 1;        // two rows' x-passes at a time
+  constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr int kSlot = kInt8 ? kStageBytes8 : kStageBytes;  // a copy slot
+  // chunks in flight: a bf16 slot is read in place, so the copy into it
+  // waits for the next chunk's barrier; an int8 slot is free once its
+  // chunk is dequantized
+  constexpr int kAhead = kInt8 ? kStages : kStages - 1;
+  constexpr int kRingBytes = ring_bytes(kInt8);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t full[kStages];  // slot s holds its chunk
+  // int8: the bf16 work buffer, kSlot values (an int8 slot's cells)
+  __nv_bfloat16* work =
+      reinterpret_cast<__nv_bfloat16*>(smem + kStages * kSlot);
+  float* wy = reinterpret_cast<float*>(smem + kRingBytes);
+  float* wx = wy + kBand * side;                      // [P][x span]
+  int* rows = reinterpret_cast<int*>(wx + P * side);  // [y span]: bins
+  int* ya = rows + side;
+  int* yb = ya + kBand;
+  int* xa = yb + kBand;
   int* xb = xa + P;
 
-  const int roi = blockIdx.x;  // b * R + r
+  const int n_bands = (P + kBand - 1) / kBand;
+  const int roi = blockIdx.x / n_bands;  // b * R + r
+  const int p0 = (blockIdx.x - roi * n_bands) * kBand;
+  const int nb = min(kBand, P - p0);
   const int b = roi / R;
   const int l = min(max(lvl[roi], 0), pyr.n_levels - 1);
-  const int H = pyr.H[l];
-  const int W = pyr.W[l];
-  const float stride = pyr.stride[l];
+  // the box's level, read with constant indices (a dynamic index would
+  // copy the whole parameter struct to the stack of every thread)
+  const void* feat = nullptr;
+  int H = 1, W = 1;
+  float stride = 1.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxLevels; ++k) {
+    if (k == l) {
+      feat = pyr.feat[k];
+      H = pyr.H[k];
+      W = pyr.W[k];
+      stride = pyr.stride[k];
+    }
+  }
   const float* bx = boxes + 4 * static_cast<size_t>(roi);
-  const Axis ax = make_axis(bx[0], bx[2], P, stride, W, sampling);
-  const Axis ay = make_axis(bx[1], bx[3], P, stride, H, sampling);
-  const int2 sx = tap_span(bx[0], bx[2], stride, W);
-  const int2 sy = tap_span(bx[1], bx[3], stride, H);
+  const float bin_x =
+      __fdiv_rn(__fsub_rn(bx[2], bx[0]), static_cast<float>(P));
+  const float bin_y =
+      __fdiv_rn(__fsub_rn(bx[3], bx[1]), static_cast<float>(P));
 
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+  // the weights over the tap spans of the box's columns and the band's
+  // rows, with each bin's non-zero range and each row's bins
+  const int2 sx = tap_span(bx[0], bx[2], 1.0f / stride, W);
+  const int2 sy = tap_span(bin_start(bx[1], bin_y, p0),
+                           bin_start(bx[1], bin_y, p0 + nb), 1.0f / stride,
+                           H);
+  const int nxt = sx.y - sx.x + 1;
+  const int nyt = sy.y - sy.x + 1;
+  for (int i = threadIdx.x; i < kBand; i += blockDim.x) {
     ya[i] = INT_MAX;
     yb[i] = -1;
+  }
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
     xa[i] = INT_MAX;
     xb[i] = -1;
   }
+  for (int i = threadIdx.x; i < nyt; i += blockDim.x) rows[i] = 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) bulk::mbar_init(&full[i]);
+    bulk::fence_init();
+  }
   __syncthreads();
-  fill_weights(ay, sy, P, side, wy, ya, yb);
-  fill_weights(ax, sx, P, side, wx, xa, xb);
+  fill_weights(make_axis(bx[1], bin_y, stride, H, sampling), p0, nb, sy.x,
+               nyt, wy, ya, yb, rows);
+  fill_weights(make_axis(bx[0], bin_x, stride, W, sampling), 0, P, sx.x,
+               nxt, wx, xa, xb, nullptr);
   __syncthreads();
 
-  const T* f =
-      static_cast<const T*>(pyr.feat[l]) + static_cast<size_t>(b) * H * W * C;
-  const float scale = scales != nullptr ? scales[l] : 1.0f;
-  __nv_bfloat16* o = out + static_cast<size_t>(roi) * P * P * C;
-  for (int c = 2 * threadIdx.x; c < C; c += 2 * blockDim.x) {
-    for (int p = 0; p < P; ++p) {
-      const float* wyp = wy + p * side;
-      for (int q = 0; q < P; ++q) {
-        const float* wxq = wx + q * side;
-        float a0 = 0.0f, a1 = 0.0f;
-        for (int y = ya[p]; y <= yb[p]; ++y) {
-          const T* row = f + static_cast<size_t>(y) * W * C + c;
-          float r0 = 0.0f, r1 = 0.0f;
-          for (int x = xa[q]; x <= xb[q]; ++x) {
-            const float2 v = load2(row + static_cast<size_t>(x) * C, scale);
-            const float w = wxq[x - sx.x];
-            r0 += w * v.x;
-            r1 += w * v.y;
-          }
-          const float w = wyp[y - sy.x];
-          a0 += w * r0;
-          a1 += w * r1;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(
-            o + (static_cast<size_t>(p) * P + q) * C + c) =
-            __floats2bfloat162_rn(a0, a1);
+  // the region staged: the rows and columns of non-zero weight
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  int ry0 = INT_MAX, ry1 = -1, rx0 = INT_MAX, rx1 = -1;
+  for (int i = 0; i < nb; ++i) {
+    ry0 = min(ry0, ya[i]);
+    ry1 = max(ry1, yb[i]);
+  }
+  int xlo[QPW], xhi[QPW];  // this warp's columns' ranges
+#pragma unroll
+  for (int j = 0; j < QPW; ++j) {
+    xlo[j] = INT_MAX;
+    xhi[j] = -1;
+  }
+  for (int q = 0; q < P; ++q) {
+    rx0 = min(rx0, xa[q]);
+    rx1 = max(rx1, xb[q]);
+#pragma unroll
+    for (int j = 0; j < QPW; ++j) {
+      if (q == warp + j * nwarps) {
+        xlo[j] = xa[q];
+        xhi[j] = xb[q];
       }
     }
   }
+  const int cell_bytes = C * static_cast<int>(sizeof(T));
+  Region g;
+  g.rx0 = rx0;
+  g.nx = rx1 - rx0 + 1;
+  g.ry0 = ry0;
+  g.ny = ry1 - ry0 + 1;
+  g.cap = kSlot / cell_bytes;
+  g.rows_per = g.nx <= g.cap ? g.cap / g.nx : 1;
+  g.segs = g.nx <= g.cap ? 1 : (g.nx + g.cap - 1) / g.cap;
+  g.chunks = rx0 > rx1 || ry0 > ry1 ? 0
+             : g.segs == 1          ? (g.ny + g.rows_per - 1) / g.rows_per
+                                    : g.ny * g.segs;
+
+  // one thread copies a chunk: one bulk copy per row segment (contiguous in
+  // NHWC), all counted on the slot's barrier
+  const T* f =
+      static_cast<const T*>(feat) + static_cast<size_t>(b) * H * W * C;
+  auto issue = [&](int c) {
+    const Chunk k = g.chunk(c);
+    const int slot = c % kStages;
+    unsigned char* dst = smem + slot * kSlot;
+    const unsigned row_bytes = k.ncx * cell_bytes;
+    bulk::mbar_expect(&full[slot], k.nr * row_bytes);
+    for (int r = 0; r < k.nr; ++r)
+      bulk::copy(dst + r * row_bytes,
+                 f + (static_cast<size_t>(k.y + r) * W + k.xs) * C, row_bytes,
+                 &full[slot]);
+  };
+  if (threadIdx.x == 0)
+    for (int c = 0; c < kAhead && c < g.chunks; ++c) issue(c);
+
+  const float scale = scales != nullptr ? scales[l] : 1.0f;
+  const bool active = lane * kLaneC < C;
+  float acc[kBand][QPW][kLaneC];
+  float t0[QPW][kLaneC], t1[QPW][kLaneC];  // x-passes of two rows
+#pragma unroll
+  for (int j = 0; j < QPW; ++j)
+#pragma unroll
+    for (int e = 0; e < kLaneC; ++e) {
+      t0[j][e] = t1[j][e] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kBand; ++i) acc[i][j][e] = 0.0f;
+    }
+  // the y-pass of row y into the band's rows that weigh it
+  auto ypass = [&](int y, float(&t)[QPW][kLaneC]) {
+    const int bins = rows[y - sy.x];
+#pragma unroll
+    for (int i = 0; i < kBand; ++i) {
+      if (bins >> i & 1) {
+        const float w = wy[i * nyt + y - sy.x];
+#pragma unroll
+        for (int j = 0; j < QPW; ++j)
+#pragma unroll
+          for (int e = 0; e < kLaneC; ++e) acc[i][j][e] += w * t[j][e];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < QPW; ++j)
+#pragma unroll
+      for (int e = 0; e < kLaneC; ++e) t[j][e] = 0.0f;
+  };
+
+  for (int c = 0; c < g.chunks; ++c) {
+    bulk::mbar_wait(&full[c % kStages], (c / kStages) & 1);  // chunk c landed
+    const Chunk k = g.chunk(c);
+    unsigned char* slot = smem + (c % kStages) * kSlot;
+    // the chunk's bf16 cells: the slot itself, or the work buffer
+    __nv_bfloat16* cells =
+        kInt8 ? work : reinterpret_cast<__nv_bfloat16*>(slot);
+    if (kInt8) {
+      // each cell once, 16 channels a thread, once every warp is done
+      // with chunk c - 1's cells
+      if (c > 0) __syncthreads();
+      const uint4* src = reinterpret_cast<const uint4*>(slot);
+      const int items = k.nr * k.ncx * C / 16;
+      for (int i = threadIdx.x; i < items; i += blockDim.x)
+        dequant16(src[i], scale, cells + 16 * i);
+    }
+    // bf16: every warp is done with chunk c - 1's slot; int8: chunk c's
+    // cells are all dequantized and its slot is free
+    __syncthreads();
+    if (threadIdx.x == 0 && c + kAhead < g.chunks) issue(c + kAhead);
+    if (!active) continue;
+    const __nv_bfloat16* buf = cells + lane * kLaneC;
+    // the x-pass of each row for each of the warp's columns, two rows at a
+    // time; a row cut into segments carries its sums to its last segment
+    int r = 0;
+    for (; kPair && r + 1 < k.nr; r += 2) {
+      const __nv_bfloat16* row = buf + (r * k.ncx - k.xs) * C;
+#pragma unroll
+      for (int j = 0; j < QPW; ++j) {
+        const float* wq = wx + (warp + j * nwarps) * nxt - sx.x;
+#pragma unroll 2
+        for (int x = xlo[j]; x <= xhi[j]; ++x) {
+          float v0[kLaneC], v1[kLaneC];
+          load8(row + x * C, v0);
+          load8(row + (k.ncx + x) * C, v1);
+          const float w = wq[x];
+#pragma unroll
+          for (int e = 0; e < kLaneC; ++e) {
+            t0[j][e] += w * v0[e];
+            t1[j][e] += w * v1[e];
+          }
+        }
+      }
+      ypass(k.y + r, t0);
+      ypass(k.y + r + 1, t1);
+    }
+    for (; r < k.nr; ++r) {
+      const __nv_bfloat16* row = buf + (r * k.ncx - k.xs) * C;
+#pragma unroll
+      for (int j = 0; j < QPW; ++j) {
+        const float* wq = wx + (warp + j * nwarps) * nxt - sx.x;
+        const int x0 = max(xlo[j], k.xs);
+        const int x1 = min(xhi[j], k.xs + k.ncx - 1);
+#pragma unroll 4
+        for (int x = x0; x <= x1; ++x) {
+          float v[kLaneC];
+          load8(row + x * C, v);
+          const float w = wq[x];
+#pragma unroll
+          for (int e = 0; e < kLaneC; ++e) t0[j][e] += w * v[e];
+        }
+      }
+      if (k.xs + k.ncx == g.rx0 + g.nx) ypass(k.y + r, t0);
+    }
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < kBand; ++i) {
+    if (i >= nb) continue;
+#pragma unroll
+    for (int j = 0; j < QPW; ++j) {
+      const int q = warp + j * nwarps;
+      if (q >= P) continue;
+      uint4 o;
+      unsigned* ow = reinterpret_cast<unsigned*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h =
+            __floats2bfloat162_rn(acc[i][j][2 * e], acc[i][j][2 * e + 1]);
+        ow[e] = *reinterpret_cast<const unsigned*>(&h);
+      }
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<size_t>(roi) * P + p0 + i) * P + q) * C +
+          lane * kLaneC) = o;
+    }
+  }
+}
+
+template <typename T>
+int launch(int qpw, dim3 grid, int threads, long long smem,
+           cudaStream_t stream, const Pyramid& pyr, const float* sc,
+           const float* boxes, const int* lvl, __nv_bfloat16* out, int R,
+           int C, int P, int sampling, int side) {
+  void (*kernel)(Pyramid, const float*, const float*, const int*,
+                 __nv_bfloat16*, int, int, int, int, int) =
+      qpw == 1   ? &roi_align_blocked_kernel<T, 1>
+      : qpw == 2 ? &roi_align_blocked_kernel<T, 2>
+                 : &roi_align_blocked_kernel<T, 4>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, threads, static_cast<size_t>(smem), stream>>>(
+      pyr, sc, boxes, lvl, out, R, C, P, sampling, side);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -281,8 +601,12 @@ extern "C" {
 // feats: n_levels NHWC levels (B, h_l, w_l, C) at strides 2^(min_level + l),
 // bf16 when `scales` is NULL, else int8 with scales[l] (f32, device) the
 // scale of level l; boxes (B, R, 4) f32 XYXY; lvl (B, R) int32 level index;
-// out (B, R, P, P, C) bf16. C even, pointers 4-byte aligned,
-// 0 <= sampling <= 16 (0: adaptive), 1 <= P <= 32 (checked by the wrapper).
+// out (B, R, P, P, C) bf16. C a multiple of 8 (bf16) or 16 (int8) up to
+// 256, level and out pointers 16-byte aligned, 0 <= sampling <= 16 (0:
+// adaptive), 1 <= P <= 32 (checked by the wrapper). A block's shared
+// memory (the ring, and weight tables of P + band + 1 rows of the longest
+// level side) is checked here only: cudaErrorInvalidValue when it exceeds
+// kMaxSmem.
 int roi_align_blocked_run(const void* f0, const void* f1, const void* f2,
                           const void* f3, int h0, int w0, int h1, int w1,
                           int h2, int w2, int h3, int w3, int n_levels,
@@ -292,9 +616,10 @@ int roi_align_blocked_run(const void* f0, const void* f1, const void* f2,
                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const float* sc = static_cast<const float*>(scales);
   if (n_levels < 1 || n_levels > kMaxLevels || sampling < 0 ||
-      sampling > kMaxSampling || P < 1 || P > kMaxOut || C < 2 ||
-      C % 2 != 0 || B < 1 || R < 1)
+      sampling > kMaxSampling || P < 1 || P > kMaxOut || C < 1 ||
+      C > kMaxC || C % (sc == nullptr ? 8 : 16) != 0 || B < 1 || R < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Pyramid pyr;
   const void* fs[kMaxLevels] = {f0, f1, f2, f3};
@@ -313,28 +638,27 @@ int roi_align_blocked_run(const void* f0, const void* f1, const void* f2,
     }
   }
   pyr.n_levels = n_levels;
-  const long long smem =
-      2LL * P * side * sizeof(float) + 4LL * P * sizeof(int);
+  // output columns a warp takes (1, 2 or 4), and the band rows a block
+  // holds (8, 4 or 2)
+  const int qpw = P <= kMaxWarps ? 1 : P <= 2 * kMaxWarps ? 2 : 4;
+  const int band = kMaxWarps / qpw;
+  const int warps = (P + qpw - 1) / qpw;
+  const long long smem = ring_bytes(sc != nullptr) +
+                         4LL * (band + P + 1) * side + 4LL * 2 * (band + P);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const float* sc = static_cast<const float*>(scales);
-  auto kernel = sc == nullptr ? &roi_align_blocked_kernel<__nv_bfloat16>
-                              : &roi_align_blocked_kernel<int8_t>;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int threads = ((C / 2 + 31) / 32) * 32;
-  if (threads > kThreads) threads = kThreads;
-  const long long blocks = static_cast<long long>(B) * R;
+  const long long blocks =
+      static_cast<long long>(B) * R * ((P + band - 1) / band);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), threads, static_cast<size_t>(smem),
-           static_cast<cudaStream_t>(stream)>>>(
-      pyr, sc, static_cast<const float*>(boxes),
-      static_cast<const int*>(lvl), static_cast<__nv_bfloat16*>(out), R, C, P,
-      sampling, side);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* bx = static_cast<const float*>(boxes);
+  const int* lv = static_cast<const int*>(lvl);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  return sc == nullptr
+             ? launch<__nv_bfloat16>(qpw, grid, 32 * warps, smem, st, pyr, sc,
+                                     bx, lv, o, R, C, P, sampling, side)
+             : launch<int8_t>(qpw, grid, 32 * warps, smem, st, pyr, sc, bx,
+                              lv, o, R, C, P, sampling, side);
 }
 
 const char* roi_align_blocked_error_string(int code) {

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports a plain C interface: its launch functions
 return ``cudaGetLastError()`` as an int, and ``<name>_error_string(int)``
 turns a code into text. ``nvcc`` compiles a source into a shared library
-in ``_build/`` (git-ignored), keyed by the hash of the source and the
-flags, at first use; ctypes loads it. Nothing here runs at import time.
+in ``_build/`` (git-ignored), keyed by the hash of the source, the
+headers beside it (``csrc/*.cuh``) and the flags, at first use; ctypes
+loads it. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -36,12 +37,13 @@ def nvcc_path() -> str:
 
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` into ``_build/`` unless a library of the
-    same source and flags is there. Returns {"path", "seconds", "cached",
-    "log"} (``log``: nvcc's output, with ptxas's register and spill
-    counts)."""
+    same source, headers and flags is there. Returns {"path", "seconds",
+    "cached", "log"} (``log``: nvcc's output, with ptxas's register and
+    spill counts)."""
     source = CSRC / f"{name}.cu"
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    key = hashlib.sha256(b"".join(
+        p.read_bytes() for p in (source, *sorted(CSRC.glob("*.cuh"))))
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"{name}_{key[:16]}.so"
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "cached": True, "log": ""}

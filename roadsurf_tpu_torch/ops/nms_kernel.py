@@ -1,5 +1,5 @@
-"""Greedy NMS keep mask over score-sorted boxes: the Hopper kernel's wrapper
-and its plain PyTorch version.
+"""Greedy NMS keep mask over score-sorted boxes: the Hopper kernel's wrapper,
+its plain PyTorch version, and plain mirrors of the kernel's two phases.
 
 Replaces the TPU kernel ``nms_keep_mask`` of the reference package
 (roadsurf_tpu/ops/nms_pallas.py:59, ``_nms_kernel`` :30). The kernel source
@@ -11,13 +11,18 @@ port's divisionless overlap test ``inter > t·union`` (the reference's XLA
 What bounds it on an H100: neither bytes nor operations but the greedy
 scan's chain of dependent steps. A problem of N boxes reads 20·N bytes and
 tests at most N²/2 pairs (~12 f32 operations each), microseconds of card
-time, but rank i can be decided only after every kept rank before it.
-The design keeps that chain on the card and cheap: one block per problem
-(an image, or an (image, level) pair), its boxes, areas and keep flags in
-shared memory, a loop over rank with the threads over the later boxes and
-one barrier per kept rank, and no host round trip (the plain version's
-Jacobi sweeps each read a flag back). A suppressed rank costs one shared
-load. The problems run side by side on the SMs.
+time, but rank i can be decided only after every kept rank before it. The
+design takes the pair tests off that chain and keeps the chain in
+registers: a pair phase tests every pair of a problem at once into 64-bit
+suppression words (:func:`suppression_words` is its plain mirror), then a
+sweep phase, one warp per problem, settles the ranks 64 at a time from
+those words, each block of 64 rows staged in shared memory ahead of it,
+with no block barrier (:func:`sweep_words`). The words live in
+``torch.empty`` scratch of ``problems · N · row_words(N)`` uint64 (10 MB
+for the parity RPN's 80 problems of 1000, 8 MB for its 16 class problems
+of 2000); a lane of the sweep holds 4 words of the removed mask, so
+N ≤ 8192 (and three staged blocks of 64 rows of 128 words still fit a
+block's shared memory).
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ import torch
 from . import cuda_build
 
 NEG_INF = -1e10
-MAX_N = 232448 // 21            # boxes whose tables fit a block's memory
+WORD = 64                       # ranks a suppression word covers
+MAX_N = 32 * 4 * WORD           # the sweep's words: 4 a lane, 32 lanes
+MAX_PROBLEMS = 65535            # the pair phase's grid.y
 
 
 def overlap(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
@@ -71,13 +78,71 @@ def nms_keep_mask_ref(boxes: torch.Tensor, scores: torch.Tensor,
     return keep & valid
 
 
+def row_words(n: int) -> int:
+    """Words a row of the suppression matrix holds: ceil(n/64), rounded up
+    to even so that every row starts on 16 bytes (the sweep copies rows
+    with bulk copies)."""
+    nw = -(-n // WORD)
+    return nw + nw % 2
+
+
+def suppression_words(boxes: torch.Tensor, scores: torch.Tensor,
+                      iou_thresh: float) -> torch.Tensor:
+    """The kernel's pair phase, plain: (..., N, row_words(N)) int64 holding
+    uint64 words, bit k of word w of row i set iff j = 64·w + k > i, both
+    are valid and ``overlap(i, j)``. Rows' words below their own tile, and
+    a padding word, are 0 (the kernel leaves them unwritten and never reads
+    them)."""
+    n = scores.shape[-1]
+    nw = row_words(n)
+    valid = scores > NEG_INF / 2
+    later = torch.ones((n, n), dtype=torch.bool,
+                       device=scores.device).triu(1)
+    s = overlap(boxes, iou_thresh) & later & valid[..., :, None] \
+        & valid[..., None, :]
+    s = torch.nn.functional.pad(s, (0, nw * WORD - n))
+    bits = s.reshape(s.shape[:-1] + (nw, WORD)).long() \
+        << torch.arange(WORD, device=s.device)
+    # disjoint bits: the sum is the OR (bit 63 wraps to the sign)
+    return bits.sum(-1)
+
+
+def sweep_words(words: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """The kernel's sweep phase, plain: the keep mask (..., N) bool from
+    :func:`suppression_words`. Blocks of 64 ranks in order: each rank of a
+    block is kept iff valid and not yet removed, and a kept rank's
+    diagonal word removes later ranks of the block; then the kept ranks'
+    rows are OR-ed into the later words."""
+    n = scores.shape[-1]
+    nw = words.shape[-1]
+    w = words.reshape(-1, n, nw)
+    valid = (scores > NEG_INF / 2).reshape(-1, n)
+    removed = torch.zeros((w.shape[0], nw), dtype=torch.int64,
+                          device=w.device)
+    keep = torch.zeros_like(valid)
+    for b in range(nw):
+        r = removed[:, b]
+        for k in range(min(WORD, n - WORD * b)):
+            i = WORD * b + k
+            alive = valid[:, i] & ((r >> k) & 1 == 0)
+            r = torch.where(alive, r | w[:, i, b], r)
+            keep[:, i] = alive
+        rows = slice(WORD * b, min(n, WORD * (b + 1)))
+        for i in range(rows.start, rows.stop):
+            removed[:, b + 1:] |= torch.where(keep[:, i, None],
+                                              w[:, i, b + 1:], 0)
+    return keep.reshape(scores.shape)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.library("nms")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.nms_keep_mask_f32.argtypes = [vp, vp, vp, i, i, ctypes.c_float, i,
-                                      vp]
-    lib.nms_keep_mask_f32.restype = i
+    lib.nms_pair_words_f32.argtypes = [vp, vp, vp, i, i, ctypes.c_float, i,
+                                       vp]
+    lib.nms_pair_words_f32.restype = i
+    lib.nms_sweep_words.argtypes = [vp, vp, vp, i, i, i, vp]
+    lib.nms_sweep_words.restype = i
     return lib
 
 
@@ -94,32 +159,70 @@ def _check(boxes, scores):
         raise ValueError("boxes and scores must be contiguous, on one device")
     if scores.shape[-1] > MAX_N:
         raise ValueError(f"{scores.shape[-1]} boxes a problem; at most "
-                         f"{MAX_N} fit a block")
+                         f"{MAX_N} fit the sweep's registers")
+    n = scores.shape[-1]
+    if n and scores.numel() // n > MAX_PROBLEMS:
+        raise ValueError(f"{scores.numel() // n} problems; at most "
+                         f"{MAX_PROBLEMS} a launch")
+
+
+def _cuda_args(scores):
+    N = scores.shape[-1]
+    return (scores.numel() // N, N, scores.device.index,
+            torch.cuda.current_stream(scores.device).cuda_stream)
+
+
+def pair_phase(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
+               words: torch.Tensor) -> torch.Tensor:
+    """Launch the pair phase on CUDA tensors (checked), writing ``words``
+    ((..., N, row_words(N)) int64, its rows' words from their own tile on);
+    not counted. :func:`nms_keep_mask` runs it, and ``chip_smoke.py``
+    holds it against :func:`suppression_words`."""
+    problems, N, dev, stream = _cuda_args(scores)
+    if words.shape != scores.shape + (row_words(N),) \
+            or words.dtype != torch.int64 or not words.is_contiguous() \
+            or words.device != scores.device:
+        raise ValueError("words must be contiguous int64 (..., N, "
+                         "row_words(N)) on the scores' device")
+    rc = _library().nms_pair_words_f32(
+        boxes.data_ptr(), scores.data_ptr(), words.data_ptr(), problems, N,
+        float(iou_thresh), dev, stream)
+    cuda_build.check("nms", rc, "nms pair phase")
+    return words
+
+
+def sweep_phase(words: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """Launch the sweep phase on the pair phase's ``words``; the keep mask
+    (..., N) bool. Not counted."""
+    problems, N, dev, stream = _cuda_args(scores)
+    keep = torch.empty(scores.shape, dtype=torch.uint8, device=scores.device)
+    rc = _library().nms_sweep_words(scores.data_ptr(), words.data_ptr(),
+                                    keep.data_ptr(), problems, N, dev, stream)
+    cuda_build.check("nms", rc, "nms sweep phase")
+    return keep.view(torch.bool)
 
 
 def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
                   iou_thresh: float) -> torch.Tensor:
     """Greedy keep mask (..., N) bool of score-sorted boxes (..., N, 4);
-    same arguments as :func:`nms_keep_mask_ref`. Launches the kernel for
-    CUDA tensors (one block per problem of the leading dims) and runs the
-    plain version for CPU tensors."""
+    same arguments as :func:`nms_keep_mask_ref`. For CUDA tensors it
+    launches the pair and the sweep phase over every problem of the
+    leading dims (one count on ``launches``); for CPU tensors it runs the
+    plain version."""
     if scores.device.type == "cpu":
         return nms_keep_mask_ref(boxes, scores, iou_thresh)
     if scores.device.type != "cuda":
         raise ValueError(f"no nms for {scores.device.type} tensors")
     _check(boxes, scores)
     N = scores.shape[-1]
-    problems = scores.numel() // N if N else 0
-    keep = torch.empty(scores.shape, dtype=torch.uint8, device=scores.device)
-    if keep.numel() == 0:
-        return keep.bool()
-    stream = torch.cuda.current_stream(scores.device).cuda_stream
-    rc = _library().nms_keep_mask_f32(
-        boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), problems, N,
-        float(iou_thresh), scores.device.index, stream)
-    cuda_build.check("nms", rc, "nms")
+    if scores.numel() == 0:
+        return torch.empty(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    words = torch.empty(scores.shape + (row_words(N),), dtype=torch.int64,
+                        device=scores.device)
+    keep = sweep_phase(pair_phase(boxes, scores, iou_thresh, words), scores)
     nms_keep_mask.launches += 1
-    return keep.view(torch.bool)
+    return keep
 
 
 nms_keep_mask.launches = 0

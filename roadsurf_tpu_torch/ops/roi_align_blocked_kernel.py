@@ -10,27 +10,41 @@ POOLER_SAMPLING_RATIO 0: n = ceil(bin cells) samples per bin, no cap) and
 a fixed s×s grid. The kernel source is ``csrc/roi_align_blocked.cu``,
 built and loaded by ``ops/cuda_build.py``.
 
-What bounds it on an H100: bytes. At the 800 px parity profile the box
-pooler writes 16·1000·49·256 bf16 values (401 MB) and its boxes touch up
-to the whole pyramid (27 MB an image), against a few FLOPs per touched
-cell and channel (``chip_smoke.py`` computes both bounds from each run's
-inputs). The design: one block per (image, box); the block evaluates the
-box's y-weights for all P rows and x-weights for all P columns into shared
-memory, once, over the box's tap span only (a span is at most a level's
-width, so a P × 200 table fits), with the same closed-form series and the
-same operation order as the plain version; then threads over channel
-pairs take ``Σ_y wy[p,y] · Σ_x wx[q,x] · f[y,x,c]`` straight from the NHWC
-level, over each row's and column's non-zero range, so a warp reads and
-writes contiguous 128-byte runs and touches each cell of the span about
-once per output bin that needs it. The TPU kernel's (level, x) sort, touch
-bitmap, level gates, w-block DMA, block-diagonal x-matmul and t1 relayout
-were VMEM and MXU machinery and have no counterpart here.
+What bounds it on an H100: bytes and their latency, then instruction
+issue. At the 800 px parity profile the box pooler writes 16·1000·49·256
+bf16 values (401 MB), and each box reads every cell of its region once
+(from L2: an image's 1000 proposals overlap), against one multiply-add per
+cell and channel, some 300× below the card's ridge (``chip_smoke.py``
+computes the byte bound from each run's inputs, and beside it
+``box_bytes``, the sum over boxes of their touched cells). The design (the
+note in ``csrc/roi_align_blocked.cu`` has the details): a block per
+(image, box, band of output rows), warps over output columns, 8 channels a
+lane with the band's bins in registers, so the mask pooler's 1,600 boxes
+make 6,400 blocks; the weights first (same closed-form series and
+operation order as the plain version), then only the rows and columns of
+non-zero weight staged through a ring of shared-memory buffers by bulk
+copies (one per row segment, completion on an mbarrier) while the
+previous chunk is summed; the x-pass once per staged row. Int8 chunks
+are copied as int8 and each of their cells dequantized once, 16 channels
+a thread, into a bf16 work buffer that the x-pass reads. The TPU kernel's
+(level, x) sort, touch bitmap, level gates, w-block DMA, block-diagonal
+x-matmul and t1 relayout were VMEM and MXU machinery and have no
+counterpart here.
+
+The kernel takes 16-byte aligned levels and a channel count up to 256
+that is a multiple of 8 (bf16) or 16 (int8 levels); the wrapper checks
+both, and that the staging ring and the weight tables (P + band + 1 rows
+of the longest level side) fit a block's shared memory, with the layout
+constants read from the kernel source (``KERNEL``), so that a layout is
+refused on any device before a launch; the kernel's launcher checks the
+same sum again.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 
@@ -39,8 +53,12 @@ from .roi_align_kernel import MAX_SAMPLING, POOLER_ARGTYPES, \
     check_pooler_inputs, dequantize, launch_pooler, plain_on_cpu, \
     roi_align_fused_ref
 
-MAX_OUT = 32                    # out_size (per-bin range tables)
-MAX_SMEM = 232448               # bytes of shared memory a block may use
+# the layout constants of csrc/roi_align_blocked.cu, read from its source
+KERNEL = {name: int(v) for name, v in re.findall(
+    r"^constexpr int (k\w+) = (\d+);",
+    (cuda_build.CSRC / "roi_align_blocked.cu").read_text(), re.M)}
+MAX_OUT = KERNEL["kMaxOut"]             # out_size (per-bin range tables)
+MAX_C = 32 * KERNEL["kLaneC"]           # channels: 8 a lane, one warp
 
 
 def roi_align_fused_blocked_ref(feats, boxes, lvl, out_size: int,
@@ -68,15 +86,38 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def smem_bytes(out_size: int, side: int, int8: bool = False) -> int:
+    """Shared memory a block of the kernel takes (``roi_align_blocked_run``
+    computes the same sum): the staging ring (for int8 levels, its int8
+    slots and the bf16 work buffer), the band's y-weights and all
+    x-weights over the longest level side, each row's bins, and the bins'
+    non-zero ranges."""
+    k = KERNEL
+    warps = k["kMaxWarps"]
+    qpw = 1 if out_size <= warps else 2 if out_size <= 2 * warps else 4
+    band = warps // qpw
+    ring = (k["kStages"] + 2) * k["kStageBytes8"] if int8 \
+        else k["kStages"] * k["kStageBytes"]
+    return ring + 4 * (band + out_size + 1) * side + 8 * (band + out_size)
+
+
 def _check(feats, boxes, lvl, out_size, sampling, feat_scales=None):
     check_pooler_inputs(feats, boxes, lvl, feat_scales)
     if not (0 <= sampling <= MAX_SAMPLING and 1 <= out_size <= MAX_OUT):
         raise ValueError(f"unsupported out_size={out_size}, "
                          f"sampling={sampling}")
-    # the y and x weight tables (P × the longest level side, f32) and four
-    # per-bin range tables
+    # a lane's 8 channels, a warp's 256, rows copied in 16-byte units
+    multiple = 8 if feat_scales is None else 16
+    C = feats[0].shape[-1]
+    if C % multiple or C > MAX_C:
+        raise ValueError(f"channel count must be a multiple of {multiple} "
+                         f"up to {MAX_C} for {feats[0].dtype} levels, got "
+                         f"{C}")
+    if any(f.data_ptr() % 16 for f in feats):
+        raise ValueError("levels must be 16-byte aligned")
     side = max(max(f.shape[1], f.shape[2]) for f in feats)
-    if 2 * out_size * side * 4 + 4 * out_size * 4 > MAX_SMEM:
+    if smem_bytes(out_size, side, feat_scales is not None) \
+            > KERNEL["kMaxSmem"]:
         raise ValueError(f"levels of side {side} at out_size={out_size} "
                          f"exceed a block's shared memory")
 
