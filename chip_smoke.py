@@ -12,7 +12,10 @@ exits non-zero:
    at its main path's shapes and on edge batches; its time, the plain
    version's time and the least time the card could take.
    K1 (``roi_align``): the fast profile's poolers (B=64, C=256, P2..P4 at
-   256 px tiles; box R=32 P=7, mask R=8 P=14, s=2). K2
+   256 px tiles; box R=32 P=7, mask R=8 P=14, s=2), and on the edge batch
+   (a full-width road across 64 P2 cells, boxes on every level boundary)
+   also cases that cross the work split it shares with K2 (``SPLIT``: R
+   of 37 and 13, P = 28). K2
    (``roi_align_blocked``): the parity profile's poolers (B=16, C=256,
    P2..P5 at 800 px; box R=1000 P=7, mask R=100 P=14, adaptive) and the
    box pooler at s=2. Both poolers also in their int8 mode, at the same
@@ -30,7 +33,10 @@ exits non-zero:
    (torch.profiler) beside the call's. K4 (``int8_gemm``): the fast
    profile's backbone 1x1 convs at B=64 and box FC1 as GEMMs, raw and
    with the bf16 and int8 epilogues, each held equal bit for bit, beside
-   ``torch._int_mm``.
+   ``torch._int_mm``, with the device time of the call's kernels; and,
+   untimed, the ragged shapes of ``GEMM_EDGES`` (M, K, N off the tiles and
+   off TMA's 16-byte rule, a misaligned ``a``), bit for bit in every
+   mode.
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
    64 random 256 px tiles, the last one short; K1 must have been launched
@@ -78,8 +84,8 @@ F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores (data sheet)
 # |kernel - plain| <= 2^-8·|plain| + 1e-4, for K1 and K2: one bf16 rounding
 # of the output (half an ulp, at most 2^-9 relative) over f32 sums taken in
-# another order (K1 (wy·wx)·f per tap, K2 wy·Σ wx·f per row, the plain
-# versions (Σ wy·f)·wx): a few ulps of Σ|w·f| ≤ max |f| ~ 5, ~1e-5. The
+# another order (the kernels wy·Σ wx·f per row, the plain versions
+# (Σ wy·f)·wx): a few ulps of Σ|w·f| ≤ max |f| ~ 5, ~1e-5. The
 # weights themselves, and so every sample's border decision, are computed
 # with the same operations in both. A misplaced sample costs ~1e-1.
 REL_TOL, ABS_TOL = 2.0 ** -8, 1e-4
@@ -87,6 +93,10 @@ C = 256
 # fast profile: batch, tile side, poolers (name, R, P)
 B, TILE = 64, 256
 POOLERS = (("box", 32, 7), ("mask", 8, 14))
+# K1's work split crossed (edge boxes): R that fills no round count of
+# blocks, a short last band of output rows (P = 14), and P = 28's four
+# output columns a warp in bands of two rows
+SPLIT = (("box_r37", 37, 7), ("mask_r13", 13, 14), ("p28_r13", 13, 28))
 # parity profile: batch, resized side, P2..P5 sides, poolers (name, R, P, s)
 PB, PSIDE = 16, 800
 PLEVELS = (200, 100, 50, 25)
@@ -110,6 +120,13 @@ GEMMS = (("C2 1x1 256>64", B * 64 * 64, 256, 64),
          ("C4 1x1 256>1024", B * 16 * 16, 256, 1024),
          ("C5 1x1 2048>512", B * 8 * 8, 2048, 512),
          ("boxFC1", B * 32, 7 * 7 * C, 1024))
+# K4 off the main shapes (untimed): M not a multiple of a tile; K not a
+# multiple of the 128-deep slice, 8-aligned (72) and 16-aligned (80); K and
+# N off TMA's 16-byte rule (a read through a padded copy); N = 8; and an
+# ``a`` view whose base lies 4 bytes off 16 (name, M, K, N, byte offset)
+GEMM_EDGES = (("M1000", 1000, 256, 128, 0), ("K72", 512, 72, 64, 0),
+              ("K80", 512, 80, 192, 0), ("K100 N24", 300, 100, 24, 0),
+              ("N8", 256, 128, 8, 0), ("a+4", 1000, 256, 128, 4))
 INT8 = {"int8_scope": "full", "int8_pyramid": True}
 
 
@@ -241,6 +258,8 @@ def _pool_inputs(g, R: int, edge: bool):
             [-1, -1, 0, 0],                # outside the first cell
             [-3, 10, 25, 38],              # a P=7 sample exactly at c = -1
             [231, 10, 259, 38],            # ... and exactly at c = W
+            [0, 120, 256, 126],            # full-width road: 64 P2 cells
+            [120, 0, 126, 256],            # full-height road
         ], dtype=torch.float32, device=dev)
         k = min(R, len(special))
         boxes[:, :k] = special[:k]
@@ -299,17 +318,15 @@ def _quantized(feats):
     return q, scales.contiguous()
 
 
-def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
+def _pool_work(feats, boxes, lvl, P: int, s: int):
     """(bytes, FLOPs, box bytes) a pooling call needs: the feature cells
     its boxes' taps touch (each read once, at the levels' element size),
     boxes and levels read, the bf16 output written; box bytes are the
     cells each box touches, summed over the boxes (what a design that
     reads every box's region apart moves, from L2 where boxes overlap).
-    FLOPs: K1's form (``per_tap``) does 2 per tap of each valid sample
-    and channel; K2's separable form,
-    for each output bin (p, q) and channel, 2 per cell of row p's non-zero
-    y-weights times column q's non-zero x-weights, and 2 per non-zero
-    y-weight; int8 levels add 1 per touched cell and channel (its
+    FLOPs: the poolers' separable form, for each output bin (p, q) and
+    channel, 2 per cell of row p's non-zero y-weights times column q's
+    non-zero x-weights, and 2 per non-zero y-weight; int8 levels add 1 per touched cell and channel (its
     dequantization)."""
     from roadsurf_tpu_torch.ops.roi_align_kernel import axis_weights
 
@@ -330,21 +347,14 @@ def _pool_work(feats, boxes, lvl, P: int, s: int, per_tap: bool):
             box_cells += int((rows.sum(-1) * cols.sum(-1)).sum())
             if feats[0].dtype == torch.int8:
                 flops += float(touched.sum()) * C
-            if per_tap:
-                # a valid sample's taps sum to 1/s on its axis
-                ny = torch.round(wy.sum(-1) * s)               # (1, R, P)
-                nx = torch.round(wx.sum(-1) * s)
-                flops += float((ny.sum(-1) * nx.sum(-1)).sum()) * 4 * 2 * C
-            else:
-                ny = (wy != 0).sum(-1).float()                 # (1, R, P)
-                nx = (wx != 0).sum(-1).float()
-                flops += float((ny.sum(-1) * (nx.sum(-1) + P)).sum()) \
-                    * 2 * C
+            ny = (wy != 0).sum(-1).float()                     # (1, R, P)
+            nx = (wx != 0).sum(-1).float()
+            flops += float((ny.sum(-1) * (nx.sum(-1) + P)).sum()) * 2 * C
     return nbytes, flops, box_cells * C * item
 
 
 def _pool_case(kernel, plain, feats, boxes, P, s, plain_iters: int,
-               per_tap: bool, int8: bool, **meta) -> dict:
+               int8: bool, **meta) -> dict:
     """One pooler call against its plain version, on ``feats`` or, with
     ``int8``, on int8 levels quantized from them."""
     from roadsurf_tpu_torch.ops.roi_align import level_assignment, \
@@ -365,7 +375,7 @@ def _pool_case(kernel, plain, feats, boxes, P, s, plain_iters: int,
                 lvl.flatten(), minlength=n_lev).tolist(),
             **_agreement(got, ref)}
     del ref
-    nbytes, flops, box_bytes = _pool_work(feats, boxes, lvl, P, s, per_tap)
+    nbytes, flops, box_bytes = _pool_work(feats, boxes, lvl, P, s)
     case.update(
         ms=_time_ms(lambda: kernel(feats, boxes, lvl, P, s,
                                    feat_scales=scales), 20),
@@ -384,11 +394,11 @@ def phase_kernels_k1(int8: bool) -> list:
     name = "roi_align_int8" if int8 else "roi_align"
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = []
-    for edge in (False, True):
-        for pooler, R, P in POOLERS:
+    for edge, poolers in ((False, POOLERS), (True, POOLERS + SPLIT)):
+        for pooler, R, P in poolers:
             feats, boxes = _pool_inputs(g, R, edge)
             case = _pool_case(roi_align_fused, roi_align_fused_ref, feats,
-                              boxes, P, 2, 5, True, int8, pooler=pooler,
+                              boxes, P, 2, 5, int8, pooler=pooler,
                               edge=edge, main=not edge)
             _require(case["levels"] == [64, 32, 16]
                      and len(case["boxes_per_level"]) == 3,
@@ -412,7 +422,7 @@ def phase_kernels_k2(int8: bool) -> list:
             feats, boxes = _parity_pool_inputs(g, R, edge)
             case = _pool_case(roi_align_fused_blocked,
                               roi_align_fused_blocked_ref, feats, boxes, P,
-                              s, 2, False, int8, pooler=pooler, edge=edge,
+                              s, 2, int8, pooler=pooler, edge=edge,
                               main=not edge and s == 0)
             torch.cuda.empty_cache()
             _require(len(case["boxes_per_level"]) == 4,
@@ -572,57 +582,92 @@ def phase_kernels_k3() -> list:
 # ---------------------------------------------------------------------------
 # K4: the int8 GEMM
 
+def _gemm_inputs(g, M: int, K: int, N: int, offset: int = 0):
+    """a (M, K) and w (K, N) int8, mult and bias (N,) f32 on the
+    generator's device; with ``offset``, ``a`` is a contiguous view that
+    many bytes into its storage. A unit's epilogue folded into its int8
+    consumer's scale: the sums have a spread of about 5400·sqrt(K), so y
+    spreads over about ±50 and the int8 mode rounds through its whole
+    range."""
+    dev = g.device
+    a = torch.randint(-127, 128, (M * K + offset,), generator=g, device=dev,
+                      dtype=torch.int8)[offset:].view(M, K)
+    w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    mult = (0.5 + torch.rand(N, generator=g, device=dev)) \
+        * (50.0 / (5400.0 * K ** 0.5))
+    bias = 10.0 * torch.randn(N, generator=g, device=dev)
+    return a, w, mult, bias
+
+
+GEMM_MODES = (("raw", lambda mult, bias: {}),
+              ("bf16", lambda mult, bias: {"mult": mult, "bias": bias,
+                                           "relu": True}),
+              ("int8", lambda mult, bias: {"mult": mult, "bias": bias,
+                                           "relu": True, "quantize": True}))
+
+
+def _gemm_case(kernel, plain, a, w, kw, timed: bool) -> dict:
+    """One GEMM call against its plain version, bit for bit; with
+    ``timed``, its time, the plain version's, ``torch._int_mm``'s (raw
+    mode) and the bound."""
+    (M, K), N = a.shape, w.shape[1]
+    got = kernel(a, w, **kw)
+    ref = plain(a, w, **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs()
+    case = {"M": M, "K": K, "N": N, "a_offset": a.data_ptr() % 16,
+            "max_abs_err": float(diff.max()),
+            "mismatches": int((diff > 0).sum()),
+            "max_abs_out": float(ref.float().abs().max())}
+    if timed:
+        raw = "mult" not in kw
+        nbytes = M * K + K * N + M * N * got.element_size() \
+            + (0 if raw else 8 * N)
+        # the device time of the call's kernels (w's transpose, a's
+        # padding where needed, the GEMM) beside the call's event time,
+        # which also holds the host's launch path
+        dev = _device_ms(lambda: kernel(a, w, **kw), 10)
+        case.update(
+            ms=_time_ms(lambda: kernel(a, w, **kw), 20),
+            device_ms=sum(dev.values()),
+            transpose_ms=sum(v for k, v in dev.items() if "transpose" in k),
+            plain_ms=_time_ms(lambda: plain(a, w, **kw), 3, warmup=1),
+            library_ms=_time_ms(lambda: torch._int_mm(a, w), 20)
+            if raw else None,
+            library_device_ms=sum(_device_ms(
+                lambda: torch._int_mm(a, w), 10).values()) if raw else None,
+            **_bound(nbytes, 2.0 * M * K * N, INT8_OPS_PER_S))
+    return case
+
+
 def phase_kernels_k4() -> list:
     """Each GEMM shape in the raw, bf16 and int8 epilogue modes, held equal
     to the plain version bit for bit (the integer sum is exact and the
     epilogue rounds each f32 operation as the plain version does), its
     time, the plain version's, ``torch._int_mm``'s for the raw mode, and
     the bound: bytes over the memory rate, 2·M·K·N over the int8
-    tensor-core rate."""
+    tensor-core rate; then the ragged shapes of ``GEMM_EDGES``, untimed and
+    off the ``kernels`` line's sums, held equal the same way."""
     from roadsurf_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_ref
 
     g = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [(shape, M, K, N, 0, True) for shape, M, K, N in GEMMS] \
+        + [(*e, False) for e in GEMM_EDGES]
     cases = []
-    for shape, M, K, N in GEMMS:
-        a = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
-                          dtype=torch.int8)
-        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
-                          dtype=torch.int8)
-        # a unit's epilogue folded into its int8 consumer's scale: the sums
-        # have a spread of about 5400·sqrt(K), so y spreads over about ±50
-        # and the int8 mode rounds through its whole range
-        mult = (0.5 + torch.rand(N, generator=g, device="cuda")) \
-            * (50.0 / (5400.0 * K ** 0.5))
-        bias = 10.0 * torch.randn(N, generator=g, device="cuda")
-        for mode, kw in (("raw", {}),
-                         ("bf16", {"mult": mult, "bias": bias,
-                                   "relu": True}),
-                         ("int8", {"mult": mult, "bias": bias, "relu": True,
-                                   "quantize": True})):
-            got = int8_gemm(a, w, **kw)
-            ref = int8_gemm_ref(a, w, **kw)
-            torch.cuda.synchronize()
-            diff = (got.float() - ref.float()).abs()
-            out_bytes = got.element_size()
-            nbytes = M * K + K * N + M * N * out_bytes \
-                + (8 * N if mode != "raw" else 0)
+    for shape, M, K, N, offset, main in shapes:
+        a, w, mult, bias = _gemm_inputs(g, M, K, N, offset)
+        for mode, kw in GEMM_MODES:
             case = {"case": f"{shape} {mode}", "shape": shape, "mode": mode,
-                    "M": M, "K": K, "N": N, "main": mode == "raw",
-                    "max_abs_err": float(diff.max()),
-                    "mismatches": int((diff > 0).sum()),
-                    "max_abs_out": float(ref.float().abs().max()),
-                    "ms": _time_ms(lambda: int8_gemm(a, w, **kw), 20),
-                    "plain_ms": _time_ms(lambda: int8_gemm_ref(a, w, **kw), 3,
-                                         warmup=1),
-                    "library_ms": _time_ms(lambda: torch._int_mm(a, w), 20)
-                    if mode == "raw" else None,
-                    **_bound(nbytes, 2.0 * M * K * N, INT8_OPS_PER_S)}
-            del got, ref, diff
+                    "main": main and mode == "raw",
+                    **_gemm_case(int8_gemm, int8_gemm_ref, a, w,
+                                 kw(mult, bias), main)}
             _emit({"phase": "kernels", "kernel": "int8_gemm", **case})
             _require(case["mismatches"] == 0,
                      f"int8_gemm {mode} differs from its plain version: "
                      f"{case}")
             cases.append(case)
+        del a, w
     return cases
 
 
@@ -805,8 +850,9 @@ def phase_main_path_parity(int8: bool = False, n_batches: int = 4,
 
 def _category(name: str) -> str:
     n = name.lower()
-    for cat, keys in (("roi_align_blocked", ("roi_align_blocked",)),
-                      ("roi_align", ("roi_align",)),
+    # K1 and K2 run one device code (roi_align_staged_kernel): on the fast
+    # paths "roi_align" is K1, on the parity paths K2
+    for cat, keys in (("roi_align", ("roi_align",)),
                       ("nms", ("nms",)),
                       ("conv", ("conv", "xmma", "implicit", "cudnn",
                                 "nhwc", "winograd")),
@@ -890,13 +936,16 @@ def _record(name, source, replaces, launches, cases, err_key, per_key):
             "bound_ms": sum(c["bound_ms"] for c in timed),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": sum(lib) if lib and None not in lib else None,
-            # K2: the bytes a per-box design moves; K3: its two phases
+            # K2: the bytes a per-box design moves; K3: its two phases; K4:
+            # the device time of its kernels and of torch._int_mm's
             **{k: sum(c[k] for c in timed) for k in (
-                "box_bytes", "box_bytes_ms", "pair_ms", "sweep_ms")
+                "box_bytes", "box_bytes_ms", "pair_ms", "sweep_ms",
+                "device_ms", "transpose_ms", "library_device_ms")
                if timed and k in timed[0]},
             "per_call": {c[per_key]: {k: c.get(k) for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "box_bytes_ms", "pair_ms", "sweep_ms") if k in c}
+                "box_bytes_ms", "pair_ms", "sweep_ms", "device_ms",
+                "transpose_ms", "library_device_ms") if k in c}
                 for c in timed}}
 
 

@@ -1,8 +1,9 @@
 // Bulk copies from global to shared memory (cp.async.bulk, the non-tensor
-// TMA) whose bytes complete on a shared-memory mbarrier, for the kernels of
-// roi_align_blocked.cu and nms.cu. Each barrier counts one arrival (the
-// thread that issues the copies) and the bytes it expects; a consumer waits
-// on the barrier's phase parity.
+// TMA) whose bytes complete on a shared-memory mbarrier, and the mbarrier
+// operations, for the kernels of roi_align_staged.cuh, nms.cu and
+// int8_gemm.cu. A barrier of a copy counts one arrival (the thread that
+// issues the copies) and the bytes it expects; a consumer waits on the
+// barrier's phase parity.
 
 #pragma once
 
@@ -14,10 +15,12 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Initialize `bar` for one arrival a phase; call fence_init() after the
-// block's barriers are initialized and before any copy is issued.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+// Initialize `bar` for `count` arrivals a phase; call fence_init() after
+// the block's barriers are initialized and before any copy is issued.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
                : "memory");
 }
 
@@ -33,10 +36,20 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
                : "memory");
 }
 
-// Wait until the phase of parity `parity` of `bar` has completed.
+// Arrive on `bar` (one of its `count` arrivals).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed. A wait
+// of more than 2^31 cycles (about a second) traps, so that a fault shows
+// as a launch error and not as a hung card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
+  const long long t0 = clock64();
+  while (true) {
+    unsigned done;
     asm volatile(
         "{\n .reg .pred p;\n"
         " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -44,6 +57,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "=r"(done)
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 31)) __trap();
   }
 }
 

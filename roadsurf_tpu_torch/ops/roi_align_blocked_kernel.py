@@ -31,34 +31,32 @@ a thread, into a bf16 work buffer that the x-pass reads. The TPU kernel's
 x-matmul and t1 relayout were VMEM and MXU machinery and have no
 counterpart here.
 
-The kernel takes 16-byte aligned levels and a channel count up to 256
-that is a multiple of 8 (bf16) or 16 (int8 levels); the wrapper checks
-both, and that the staging ring and the weight tables (P + band + 1 rows
-of the longest level side) fit a block's shared memory, with the layout
-constants read from the kernel source (``KERNEL``), so that a layout is
-refused on any device before a launch; the kernel's launcher checks the
-same sum again.
+The device code is in ``csrc/roi_align_staged.cuh``, which K1's source
+includes too; ``roi_align_blocked.cu`` is K2's entry point (every sampling
+mode, P and level side at run time). The kernel takes 16-byte aligned
+levels and a channel count up to 256 that is a multiple of 8 (bf16) or 16
+(int8 levels); the wrapper checks both, and that the staging ring and the
+weight tables (P + band + 1 rows of the longest level side) fit a block's
+shared memory (``check_staged_layout``, shared with K1's wrapper, with the
+layout constants read from the kernel source, ``KERNEL``), so that a
+layout is refused on any device before a launch; the kernel's launcher
+checks the same sum again.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import re
 
 import torch
 
 from . import cuda_build
-from .roi_align_kernel import MAX_SAMPLING, POOLER_ARGTYPES, \
-    check_pooler_inputs, dequantize, launch_pooler, plain_on_cpu, \
-    roi_align_fused_ref
+from .roi_align_kernel import KERNEL, MAX_C, MAX_OUT, MAX_SAMPLING, \
+    POOLER_ARGTYPES, check_pooler_inputs, check_staged_layout, dequantize, \
+    launch_pooler, plain_on_cpu, roi_align_fused_ref, smem_bytes
 
-# the layout constants of csrc/roi_align_blocked.cu, read from its source
-KERNEL = {name: int(v) for name, v in re.findall(
-    r"^constexpr int (k\w+) = (\d+);",
-    (cuda_build.CSRC / "roi_align_blocked.cu").read_text(), re.M)}
-MAX_OUT = KERNEL["kMaxOut"]             # out_size (per-bin range tables)
-MAX_C = 32 * KERNEL["kLaneC"]           # channels: 8 a lane, one warp
+__all__ = ["KERNEL", "MAX_C", "MAX_OUT", "MAX_SAMPLING", "smem_bytes",
+           "roi_align_fused_blocked", "roi_align_fused_blocked_ref"]
 
 
 def roi_align_fused_blocked_ref(feats, boxes, lvl, out_size: int,
@@ -86,40 +84,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(out_size: int, side: int, int8: bool = False) -> int:
-    """Shared memory a block of the kernel takes (``roi_align_blocked_run``
-    computes the same sum): the staging ring (for int8 levels, its int8
-    slots and the bf16 work buffer), the band's y-weights and all
-    x-weights over the longest level side, each row's bins, and the bins'
-    non-zero ranges."""
-    k = KERNEL
-    warps = k["kMaxWarps"]
-    qpw = 1 if out_size <= warps else 2 if out_size <= 2 * warps else 4
-    band = warps // qpw
-    ring = (k["kStages"] + 2) * k["kStageBytes8"] if int8 \
-        else k["kStages"] * k["kStageBytes"]
-    return ring + 4 * (band + out_size + 1) * side + 8 * (band + out_size)
-
-
 def _check(feats, boxes, lvl, out_size, sampling, feat_scales=None):
     check_pooler_inputs(feats, boxes, lvl, feat_scales)
     if not (0 <= sampling <= MAX_SAMPLING and 1 <= out_size <= MAX_OUT):
         raise ValueError(f"unsupported out_size={out_size}, "
                          f"sampling={sampling}")
-    # a lane's 8 channels, a warp's 256, rows copied in 16-byte units
-    multiple = 8 if feat_scales is None else 16
-    C = feats[0].shape[-1]
-    if C % multiple or C > MAX_C:
-        raise ValueError(f"channel count must be a multiple of {multiple} "
-                         f"up to {MAX_C} for {feats[0].dtype} levels, got "
-                         f"{C}")
-    if any(f.data_ptr() % 16 for f in feats):
-        raise ValueError("levels must be 16-byte aligned")
-    side = max(max(f.shape[1], f.shape[2]) for f in feats)
-    if smem_bytes(out_size, side, feat_scales is not None) \
-            > KERNEL["kMaxSmem"]:
-        raise ValueError(f"levels of side {side} at out_size={out_size} "
-                         f"exceed a block's shared memory")
+    check_staged_layout(feats, out_size, feat_scales)
 
 
 def roi_align_fused_blocked(feats, boxes, lvl, out_size: int, sampling: int,

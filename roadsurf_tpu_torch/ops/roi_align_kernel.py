@@ -14,37 +14,59 @@ is the dequantized bf16 value ``bf16(q · s_l)`` (roadsurf_tpu/ops/
 roi_align.py:530-537), pooled in float32. The TPU kernel folds the scale
 into its f32 weights instead, which moves pooled values by up to 2⁻⁹
 relative; FC1 re-quantizes them, so int8 values would flip. The kernel
-converts each tap once and reads half the bytes of the bf16 mode; its
-output is bf16 in both modes.
+copies int8 cells, half the bytes of the bf16 mode, converts each staged
+cell once, and writes bf16 in both modes.
 
-What bounds it on an H100: bytes. Each output value is a weighted sum of
-s²·4 bf16 taps, 32 FLOPs at s = 2, against its own 2-byte store plus the
-feature cells its box touches; at the fast profile's shapes the operations
-take less time on the card's f32 units (67 TFLOP/s) than those bytes at
-3.35 TB/s (``chip_smoke.py`` computes both bounds from each run's inputs).
-The design does only what that bound asks of a first kernel: one block per
-(image, box, output row), threads over channels two bf16 at a time, so a
-warp's tap loads and its output stores are contiguous 128-byte runs of the
-NHWC rows, and the blocks of one box re-read the same rows from L2, not
-from device memory. The tap coordinates and weights are computed once per
-block into shared memory; no output is re-read and nothing else is
-written. The TPU kernel's layout devices (block-diagonal x-matmul, the t1
-relayout copies, image grouping, the touch bitmap) were workarounds for
+What bounds it on an H100: bytes and their latency. Each output value is
+a weighted sum of s²·4 bf16 taps, 32 FLOPs at s = 2, against its own
+2-byte store plus the feature cells its box touches; at the fast
+profile's shapes the operations take less time on the card's f32 units
+(67 TFLOP/s) than those bytes at 3.35 TB/s (``chip_smoke.py`` computes both
+bounds from each run's inputs), and each box's cells come from L2 (the
+boxes of an image overlap). Measured, the latency of each block's chain
+of chunk copies bounds it (``csrc/roi_align.cu`` has the numbers). The kernel shares its device code with K2
+(``csrc/roi_align_staged.cuh``, which sets out the design): a block per
+(image, box, band of output rows) with warps over output columns and 8
+channels a lane; the weights first, then only the box's rows of non-zero
+weight staged in shared memory by bulk copies on mbarriers, each row's
+x-pass once, and int8 cells dequantized once a staged chunk; compiled for
+P = 7 and 14 at s = 2, the fast profile's poolers. The earlier design of
+this kernel (a block per output row, four 4-byte tap loads a sample
+straight from L2, a convert per tap in int8) took 1.8× (bf16) and 2.1×
+(int8) the time of K2's kernel at these shapes, box and mask pooler summed
+(``tools/time_kernels.py``, NVIDIA H100 80GB HBM3 at 700 W). The TPU
+kernel's layout devices (block-diagonal x-matmul, the
+t1 relayout copies, image grouping, the touch bitmap) were workarounds for
 its memory hierarchy and matrix unit and have no counterpart here.
+
+Both wrappers take what the shared kernel takes: 16-byte aligned levels, a
+channel count up to 256 that is a multiple of 8 (bf16) or 16 (int8
+levels), out_size up to ``MAX_OUT``, and a staging ring and weight tables
+that fit a block's shared memory (``check_staged_layout``, with the layout
+constants read from the kernel source, ``KERNEL``), so that a layout is
+refused on any device before a launch; the kernel's launcher checks the
+same sum again.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 
 from . import cuda_build
 
 MAX_LEVELS = 4
-MAX_SAMPLING = 16
-MAX_TAPS = 256          # out_size · sampling per axis (shared-memory table)
+# the layout constants of csrc/roi_align_staged.cuh (both poolers' device
+# code), read from its source
+KERNEL = {name: int(v) for name, v in re.findall(
+    r"^constexpr int (k\w+) = (\d+);",
+    (cuda_build.CSRC / "roi_align_staged.cuh").read_text(), re.M)}
+MAX_SAMPLING = KERNEL["kMaxSampling"]
+MAX_OUT = KERNEL["kMaxOut"]             # out_size (per-bin range tables)
+MAX_C = 32 * KERNEL["kLaneC"]           # channels: 8 a lane, one warp
 
 
 def _axis_weight_matrix(lo, bin_size, dim: int, stride: float,
@@ -240,6 +262,41 @@ def check_pooler_inputs(feats, boxes, lvl, feat_scales=None):
                          "n_levels,) on the boxes' device")
 
 
+def smem_bytes(out_size: int, side: int, int8: bool = False) -> int:
+    """Shared memory a block of the pooler kernel takes (``pooler_run``
+    computes the same sum): the staging ring (for int8 levels, its int8
+    slots and the bf16 work buffer), the band's y-weights and all
+    x-weights over the longest level side, each row's bins, and the bins'
+    non-zero ranges."""
+    k = KERNEL
+    warps = k["kMaxWarps"]
+    qpw = 1 if out_size <= warps else 2 if out_size <= 2 * warps else 4
+    band = warps // qpw
+    ring = (k["kStages"] + 2) * k["kStageBytes8"] if int8 \
+        else k["kStages"] * k["kStageBytes"]
+    return ring + 4 * (band + out_size + 1) * side + 8 * (band + out_size)
+
+
+def check_staged_layout(feats, out_size: int, feat_scales=None):
+    """What the shared kernel of both poolers takes beyond
+    :func:`check_pooler_inputs`: a lane's 8 channels and a warp's 256,
+    rows copied in 16-byte units from 16-byte aligned levels, and weight
+    tables that fit a block's shared memory."""
+    multiple = 8 if feat_scales is None else 16
+    C = feats[0].shape[-1]
+    if C % multiple or C > MAX_C:
+        raise ValueError(f"channel count must be a multiple of {multiple} "
+                         f"up to {MAX_C} for {feats[0].dtype} levels, got "
+                         f"{C}")
+    if any(f.data_ptr() % 16 for f in feats):
+        raise ValueError("levels must be 16-byte aligned")
+    side = max(max(f.shape[1], f.shape[2]) for f in feats)
+    if smem_bytes(out_size, side, feat_scales is not None) \
+            > KERNEL["kMaxSmem"]:
+        raise ValueError(f"levels of side {side} at out_size={out_size} "
+                         f"exceed a block's shared memory")
+
+
 def launch_pooler(wrapper, name: str, entry, feats, boxes, lvl,
                   out_size: int, sampling: int, min_level: int,
                   feat_scales=None):
@@ -281,10 +338,10 @@ def plain_on_cpu(ref, feats, boxes, lvl, out_size, sampling, min_level,
 
 def _check(feats, boxes, lvl, out_size, sampling, feat_scales=None):
     check_pooler_inputs(feats, boxes, lvl, feat_scales)
-    if not (1 <= sampling <= MAX_SAMPLING
-            and 1 <= out_size * sampling <= MAX_TAPS):
+    if not (1 <= sampling <= MAX_SAMPLING and 1 <= out_size <= MAX_OUT):
         raise ValueError(f"unsupported out_size={out_size}, "
                          f"sampling={sampling}")
+    check_staged_layout(feats, out_size, feat_scales)
 
 
 def roi_align_fused(feats, boxes, lvl, out_size: int, sampling: int,

@@ -18,8 +18,9 @@ from roadsurf_tpu_torch.ops import roi_align_blocked_kernel as k2
 torch.set_num_threads(1)
 
 SIDES = (200, 100, 50, 25)          # P2..P5 of an 800 px image
+# the device code K2 shares with K1 (roi_align_blocked.cu includes it)
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
-                    "roadsurf_tpu_torch", "csrc", "roi_align_blocked.cu")
+                    "roadsurf_tpu_torch", "csrc", "roi_align_staged.cuh")
 
 
 def _inputs(C, dtype, device="meta", B=2, R=4, sides=SIDES):
