@@ -61,6 +61,26 @@ exits non-zero:
 8. ``main_path_parity_int8``: the parity profile with the same int8
    settings (B=16, bits); K2 twice a batch in its int8 mode, K3 twice.
    Then its ``profile``.
+9. ``main_path_dense``: ``dense_profile()`` (256 px, fixed 2x2 sampling,
+   exact NMS, 256 proposals, 16 detections) in bf16 through the engine at
+   B=64, batches of 64 and 40: the one configuration that pairs K1 with
+   K3, each twice a batch, with the same checks. Then its ``profile``.
+10. ``host_stage``: the port's ``make_detections`` end to end. 20 random
+   zoom-18 GeoTIFF tiles, their COCO list and metadata and the weights
+   (``logs/model_0005999.npz``) in a temporary working directory; the
+   ``make_detections.py`` block of config/config_obj_detec.yaml through
+   ``pipeline.detections.run`` (the parity profile in bf16, bits, B=16:
+   batches of 16 and 4). Checks: the checkpoint merged with nothing
+   skipped; K2 and K3 twice a batch; one gpkg layer ``tst_detections`` in
+   EPSG:4326 with ``score REAL`` and ``det_class INTEGER``; at least one
+   record, every class 0 or 1, every score in [0.05, 1], every envelope
+   inside the tiles (one pixel of slack); and the first 4 tiles' records
+   (WKB, score, class) equal to the per-image host stage run on a direct
+   ``forward_inference`` of the first batch. Its line holds the stage
+   breakdown (decode, vectorize thread-seconds, h2d, d2h), end-to-end
+   tiles/s, the record counts, the gpkg's size, a cProfile split of the
+   4 tiles' host stage, the first batch's host stage timed in one thread,
+   and the same run repeated warm (uncounted).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -72,6 +92,7 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -848,6 +869,234 @@ def phase_main_path_parity(int8: bool = False, n_batches: int = 4,
     return res, eng, batches
 
 
+def phase_main_path_dense(n_batches: int = 2, tail: int = 40):
+    """The dense profile (256 px, fixed 2x2 sampling, exact NMS, 1024
+    pre-NMS candidates, 256 proposals, 16 detections) in bf16 through the
+    engine at B=64: the one configuration that pairs K1 with K3."""
+    from roadsurf_tpu_torch.models import dense_profile
+
+    cfg = dense_profile()
+    res, eng, batches = _drive(
+        "main_path_dense", cfg, B, [B] * (n_batches - 1) + [tail], "logits",
+        {"roi_align": 2, "nms": 2}, "mask_logits", (28, 28))
+    res["profile"] = "dense_profile()"
+    _emit(res)
+    return res, eng, batches
+
+
+# the host stage: 20 zoom-18 tiles of a 5 x 4 block, x/y of its first tile
+HOST_TILES, HOST_X0, HOST_Y0, HOST_COLS = 20, 137150, 92343, 5
+ORIGIN_3857 = 20037508.342789244          # pi * 6378137
+
+
+def _tile_bounds(x: int, y: int, z: int = 18):
+    """(west, south, east, north) in EPSG:3857 of web tile z/x/y."""
+    ts = 2.0 * ORIGIN_3857 / (1 << z)
+    w, n = -ORIGIN_3857 + x * ts, ORIGIN_3857 - y * ts
+    return (w, n - ts, w + ts, n)
+
+
+def _write_host_dataset(wd: str, tree) -> tuple:
+    """The tst dataset of ``make_detections`` in ``wd``: HOST_TILES random
+    256 px GeoTIFF tiles, the COCO list, ``img_metadata.json`` with their
+    bounds, and the weights as ``logs/model_0005999.npz`` (no .pth: run
+    takes the .npz beside it). Returns (tiles, bounds)."""
+    from roadsurf_tpu_torch.io.geotiff import write_geotiff
+    from roadsurf_tpu_torch.utils.weights import save_params
+
+    img_dir = os.path.join(wd, "tst-images")
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(2)
+    tiles = rng.integers(0, 256, (HOST_TILES, TILE, TILE, 3), np.uint8)
+    coco, meta, bounds = {"images": []}, {}, []
+    for i in range(HOST_TILES):
+        x, y = HOST_X0 + i % HOST_COLS, HOST_Y0 + i // HOST_COLS
+        fn = f"18_{x}_{y}.tif"
+        b = _tile_bounds(x, y)
+        write_geotiff(os.path.join(img_dir, fn), tiles[i], b)
+        coco["images"].append({"id": i, "file_name": fn, "width": TILE,
+                               "height": TILE})
+        meta[fn] = {"bounds_3857": list(b)}
+        bounds.append(b)
+    with open(os.path.join(wd, "COCO_tst.json"), "w") as f:
+        json.dump(coco, f)
+    with open(os.path.join(wd, "img_metadata.json"), "w") as f:
+        json.dump(meta, f)
+    save_params(os.path.join(wd, "logs", "model_0005999.npz"), tree)
+    return tiles, bounds
+
+
+def _host_profile(fn) -> dict:
+    """Share of ``fn``'s host time by step (cProfile, inclusive times of
+    the steps' functions; cProfile adds cost to Python calls, not to
+    native code)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t0
+    steps = {"paste_masks": "paste_masks", "trace (C++)": "trace_mask",
+             "rdp_simplify": "rdp_simplify",
+             "hole assignment (_point_in_ring)": "_point_in_ring",
+             "mask_to_polygons": "mask_to_polygons"}
+    st = pstats.Stats(prof).stats
+    out = {"profiled_s": wall}
+    for step, name in steps.items():
+        cum = sum(v[3] for (_, _, func), v in st.items() if func == name)
+        out[step] = cum
+    return out
+
+
+def phase_host_stage():
+    """The port's ``make_detections`` end to end: the YAML block of
+    config/config_obj_detec.yaml through ``pipeline.detections.run`` over
+    HOST_TILES GeoTIFF tiles (the parity profile in bf16 at full width,
+    bits masks, B=16: batches of 16 and 4), weights from the .npz beside
+    the pinned .pth name; then the gpkg's checks, and the records of the
+    first 4 tiles against the per-image host stage run on a direct
+    ``forward_inference`` of the first batch."""
+    import sqlite3
+    import tempfile
+
+    from roadsurf_tpu_torch.crs import transform_xy
+    from roadsurf_tpu_torch.geom.table import DetectionTable
+    from roadsurf_tpu_torch.io import wkb
+    from roadsurf_tpu_torch.models import forward_inference
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+    from roadsurf_tpu_torch.pipeline import detections
+    from roadsurf_tpu_torch.utils.config import load_script_config
+    from roadsurf_tpu_torch.utils.weights import from_jax_params
+
+    model_cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
+    tree = _random_tree(model_cfg, torch.Generator().manual_seed(0))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as wd:
+        tiles, bounds = _write_host_dataset(wd, tree)
+        cfg = dict(load_script_config(
+            os.path.join(ROOT, "config", "config_obj_detec.yaml"),
+            "make_detections.py"), working_directory=wd,
+            detectron2_config_file=os.path.join(ROOT, YAML))
+        merges = []
+        merge = detections.merge_params
+
+        def recording_merge(init, loaded):
+            merged, skipped = merge(init, loaded)
+            merges.append(skipped)
+            return merged, skipped
+
+        stats = {}
+        detections.merge_params = recording_merge
+        try:
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            files = detections.run(cfg, batch_size=PB, stats=stats)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = _read_counts()
+        finally:
+            detections.merge_params = merge
+        _require(merges == [[]], f"host_stage: merge skipped {merges}")
+        n_batches = -(-HOST_TILES // PB)
+        expect = {"roi_align_blocked": 2, "nms": 2}
+        want = {k: expect.get(k, 0) * n_batches for k in launches}
+        _require(launches == want, f"host_stage: launches {launches}, "
+                 f"expected {want}")
+        _require([os.path.basename(f) for f in files]
+                 == ["tst_detections_at_0dot05_threshold.gpkg"],
+                 f"host_stage wrote {files}")
+        gpkg = files[0]
+        gpkg_bytes = os.path.getsize(gpkg)
+        con = sqlite3.connect(gpkg)
+        try:
+            layers = con.execute(
+                "SELECT table_name, column_name, geometry_type_name, srs_id"
+                " FROM gpkg_geometry_columns").fetchall()
+            contents = con.execute(
+                "SELECT table_name, srs_id FROM gpkg_contents").fetchall()
+            sql = con.execute("SELECT sql FROM sqlite_master WHERE name = "
+                              "'tst_detections'").fetchone()[0]
+            rows = con.execute("SELECT geom, score, det_class FROM "
+                               "tst_detections ORDER BY fid").fetchall()
+        finally:
+            con.close()
+        _require(layers == [("tst_detections", "geom", "POLYGON", 4326)]
+                 and contents == [("tst_detections", 4326)],
+                 f"gpkg layers {layers}, contents {contents}")
+        _require('"score" REAL' in sql and '"det_class" INTEGER' in sql,
+                 f"gpkg columns: {sql}")
+        _require(len(rows) > 0, "host_stage wrote no record")
+        _require(all(c in (0, 1) for _, _, c in rows), "det_class not 0/1")
+        _require(all(0.05 <= s <= 1.0 for _, s, _ in rows),
+                 "a score outside [0.05, 1]")
+        # every envelope (GPB header: minx, maxx, miny, maxy) inside the
+        # tiles' lon/lat box, one pixel of slack
+        w, s = bounds[HOST_TILES - HOST_COLS][0], bounds[-1][1]
+        e, n = bounds[HOST_COLS - 1][2], bounds[0][3]
+        (x0, x1), (y0, y1) = transform_xy(3857, 4326, [w, e], [s, n])
+        px = (x1 - x0) / (HOST_COLS * TILE)
+        envs = np.array([struct.unpack_from("<4d", g, 8) for g, _, _ in rows])
+        _require(bool((envs[:, 0] >= x0 - px).all()
+                      and (envs[:, 1] <= x1 + px).all()
+                      and (envs[:, 2] >= y0 - px).all()
+                      and (envs[:, 3] <= y1 + px).all()),
+                 "an envelope outside the tiles")
+
+        # the host stage against the forward: the first batch as the
+        # engine ran it, then the per-image host stage of its first 4
+        # tiles, one image at a time
+        state = from_jax_params(tree)
+        dets = {k: v.cpu().numpy() for k, v in forward_inference(
+            state, tiles[:PB], model_cfg, mask_format="bits").items()}
+        direct = []
+        host = _host_profile(lambda: direct.extend(
+            r for bi in range(4)
+            for r in detections.vectorize_one(dets, bi, bounds[bi])))
+        ref = DetectionTable.from_records(direct, 3857).to_crs(4326)
+        got = rows[:len(ref)]
+        same = len(ref) > 0 and all(
+            g[40:] == wkb.dumps(p) and sc == float(s_) and c == int(c_)
+            for (g, sc, c), p, s_, c_ in zip(got, ref.geometry, ref.score,
+                                             ref.det_class))
+        _require(same, f"the first 4 tiles' {len(ref)} records differ from "
+                 "the per-image host stage of a direct forward")
+        # where the host time goes without the pool: the first batch's
+        # host stage in one thread
+        t0 = time.perf_counter()
+        for bi in range(PB):
+            detections.vectorize_one(dets, bi, bounds[bi])
+        serial_s = time.perf_counter() - t0
+        # the same run again, warm (tracer built, kernels loaded), uncounted
+        warm = {}
+        detections.run(cfg, batch_size=PB, stats=warm)
+    res = {"phase": "host_stage", "tiles": stats["tiles"],
+           "batches": [min(PB, HOST_TILES - i)
+                       for i in range(0, HOST_TILES, PB)],
+           "profile": f"from_detectron2_yaml({YAML!r}), bits",
+           "run_s": run_s, "wall_s": stats["wall_s"],
+           "tiles_per_s": stats["tiles"] / stats["wall_s"],
+           "decode_s": stats["decode_s"],
+           "vectorize_thread_s": stats["vectorize_s"],
+           "h2d_s": stats["h2d_s"], "d2h_s": stats["d2h_s"],
+           "detections": stats["detections"], "records": stats["records"],
+           "gpkg_bytes": gpkg_bytes, "launches": launches,
+           "launches_per_batch": expect,
+           "first_4_tiles_records_equal": len(ref),
+           "host_profile_4_tiles": host,
+           f"serial_host_stage_s_{PB}_tiles": serial_s,
+           "warm": {"wall_s": warm["wall_s"],
+                    "tiles_per_s": warm["tiles"] / warm["wall_s"],
+                    "decode_s": warm["decode_s"],
+                    "vectorize_thread_s": warm["vectorize_s"],
+                    "h2d_s": warm["h2d_s"], "d2h_s": warm["d2h_s"],
+                    "records": warm["records"]}}
+    _emit(res)
+    return res
+
+
 def _category(name: str) -> str:
     n = name.lower()
     # K1 and K2 run one device code (roi_align_staged_kernel): on the fast
@@ -952,7 +1201,8 @@ def _record(name, source, replaces, launches, cases, err_key, per_key):
 PATHS = ("main_path", "main_path_parity", "main_path_int8",
          "main_path_parity_int8")
 # kernel entry -> (source, TPU kernel it replaces, count name); K1 runs on
-# the fast paths, K2 and K3 on the parity paths, K4 on none
+# the fast paths and the dense one, K2 on the parity paths and the host
+# stage, K3 on those and the dense path, K4 on none
 KERNELS = {
     "roi_align": ("roi_align.cu", "roi_align_pallas.py:638", "roi_align"),
     "roi_align_int8": ("roi_align.cu", "roi_align_pallas.py:638",
@@ -1005,6 +1255,12 @@ def main() -> int:
         runs[label] = res
         del eng, batches
         torch.cuda.empty_cache()
+    res, eng, batches = phase_main_path_dense()
+    phase_profile("main_path_dense", eng, batches)
+    runs["main_path_dense"] = res
+    del eng, batches
+    torch.cuda.empty_cache()
+    runs["host_stage"] = phase_host_stage()
 
     # the times are one forward's calls at the main paths' shapes: both
     # poolers (K2 at its adaptive sampling), the RPN's and the class NMS

@@ -17,11 +17,15 @@ without its device mesh and its scan-k dispatch:
   ``tiles_seen`` and ``elapsed``.
 
 On the CPU (``device="cpu"``) the same loop runs synchronously.
+``prefetch_iter`` (the reference's) runs a producer, such as the tile
+decode of ``pipeline/detections.py``, in a thread ahead of the engine.
 """
 
 from __future__ import annotations
 
 import collections
+import queue as _queue
+import threading
 import time
 
 import numpy as np
@@ -53,12 +57,41 @@ def _pack(dets: dict) -> tuple[torch.Tensor, list]:
 
 def _unpack(buf: np.ndarray, meta: list, n: int) -> dict:
     """One packed (B, bytes) host buffer -> dict of arrays, trimmed to n.
-    Every array is a copy: the pinned buffer is reused by a later batch."""
+    Every array is a copy: the pinned buffer is reused by a later batch,
+    while a consumer (the detection host stage's pool) may still hold this
+    batch's dict."""
     out = {}
     for k, dt, shape, off, nbytes in meta:
         raw = np.array(buf[:n, off:off + nbytes])
         out[k] = raw.view(dt).reshape((n,) + shape)
     return out
+
+
+def prefetch_iter(it, depth: int = 2):
+    """Run an iterator in a background thread with a bounded queue so the
+    producer (e.g. tile decode) overlaps the consumer (device dispatch).
+    An exception of the producer is raised in the consumer."""
+    q = _queue.Queue(maxsize=depth)
+    _END = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        except BaseException as e:         # surface in the consumer
+            q.put(e)
+            return
+        q.put(_END)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is _END:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
 
 
 class TileInferenceEngine:

@@ -2,7 +2,9 @@
 
 The reference keeps its parameters as nested dicts and lists of arrays
 (its ``init_params`` and its ``.npz`` checkpoints, which ``load_params``
-reads). :func:`from_jax_params` turns such a tree, given as numpy arrays,
+reads and ``save_params`` writes; ``load_params`` also converts a
+detectron2 ``.pth``/``.pkl`` into such a tree, as the reference's does).
+:func:`from_jax_params` turns such a tree, given as numpy arrays,
 into the port's state — the same nesting, with torch-layout tensors:
 
 * conv ``w`` HWIO -> OIHW; a FrozenBN unit ``{w, scale, bias}`` becomes
@@ -28,6 +30,7 @@ Every leaf of the tree must be consumed; anything left over raises.
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -67,9 +70,24 @@ def _unflatten(flat: dict[str, np.ndarray]):
     return fix(root)
 
 
+def save_params(path: str, tree, step: int | None = None) -> str:
+    """Save a tree of arrays (numpy, or CPU tensors) as the shared ``.npz``
+    format, flat arrays keyed "a/b/c" (creating parent dirs)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    flat = _flatten(tree)
+    if step is not None:
+        flat["__step__"] = np.asarray(step)
+    np.savez(path, **flat)
+    return path
+
+
 def load_params(path: str):
-    """Load a native ``.npz`` checkpoint (flat arrays keyed "a/b/c") ->
-    (tree, step)."""
+    """Load a checkpoint -> (tree, step): a native ``.npz`` (flat arrays
+    keyed "a/b/c"), or a detectron2 ``.pth``/``.pkl`` converted on the fly
+    (``utils/d2_convert.py``; step None)."""
+    if path.endswith((".pth", ".pkl")):
+        from .d2_convert import load_detectron2_checkpoint
+        return load_detectron2_checkpoint(path), None
     with np.load(path, allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files}
     step = None

@@ -121,6 +121,32 @@ def test_parity_forward_matches_jax_at_the_real_geometry():
     assert got["boxes"].shape == (1, 100, 4)
 
 
+def test_dense_profile_forward_matches_jax_in_f32():
+    """The dense profile, the one configuration that pairs the fixed-grid
+    pooler (K1's plain version, s = 2) with exact greedy NMS (K3's): 1024
+    pre-NMS candidates a level, 256 proposals, 16 detections, at 64 px and
+    a narrow width in f32 (the bf16 stack's row of the tolerances)."""
+    from roadsurf_tpu.models.config import dense_profile as j_dense
+    from roadsurf_tpu_torch.models import dense_profile
+
+    knobs = dict(fpn_channels=32, box_fc_dim=64, mask_conv_dim=32,
+                 min_size_test=64, max_size_test=64, compute_dtype="float32")
+    jcfg, tcfg = replace(j_dense(), **knobs), replace(dense_profile(), **knobs)
+    assert asdict(jcfg) == asdict(tcfg)
+    assert (tcfg.pooler_sampling_ratio, tcfg.fast_nms,
+            tcfg.rpn_pre_nms_topk_test, tcfg.rpn_post_nms_topk_test,
+            tcfg.detections_per_image) == (2, False, 1024, 256, 16)
+    tree = narrow_tree(jcfg)
+    imgs = np.random.default_rng(1).integers(0, 255, (2, 64, 64, 3),
+                                             np.uint8)
+    ref = jax.jit(lambda p, x: jax_forward(p, x, jcfg))(tree, imgs)
+    got = forward_inference(from_jax_params(tree), imgs, tcfg, device="cpu")
+    _separated(np.asarray(ref["scores"]), np.asarray(ref["valid"]), 1e-6)
+    _compare(got, ref)
+    assert got["boxes"].shape == (2, 16, 4)
+    assert got["mask_logits"].shape == (2, 16, 28, 28)
+
+
 def test_engine_runs_the_parity_config_and_pads_and_trims_like_the_forward():
     """The CPU engine on the YAML's configuration (48 -> 96 px, bits): a
     short tail batch is padded and trimmed, and the packed fetch unpacks

@@ -79,7 +79,27 @@ def state_and_cfg():
                            ), cfg
 
 
-def test_entry_points_need_a_card_unless_asked_for_the_cpu(state_and_cfg):
+def _detections_config(wd) -> str:
+    """A make_detections config over an empty ``tst`` dataset in ``wd``
+    (no checkpoint: random weights; no detectron2 YAML: the fast profile)."""
+    os.makedirs(wd / "tst-images")
+    (wd / "COCO_tst.json").write_text('{"images": []}')
+    (wd / "img_metadata.json").write_text("{}")
+    path = wd / "config.yaml"
+    path.write_text(
+        "make_detections.py:\n"
+        f"  working_directory: {wd}\n"
+        "  image_metadata_json: img_metadata.json\n"
+        "  COCO_files: {tst: COCO_tst.json}\n"
+        "  detectron2_config_file: absent.yaml\n"
+        "  model_weights: {pth_file: logs/model_0005999.pth}\n")
+    return str(path)
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(state_and_cfg,
+                                                           tmp_path):
+    from roadsurf_tpu_torch.pipeline import detections
+
     state, cfg = state_and_cfg
     imgs = np.zeros((1, 256, 256, 3), np.uint8)
     if torch.cuda.is_available():
@@ -94,6 +114,32 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(state_and_cfg):
     assert out["boxes"].device.type == "cpu"
     eng = TileInferenceEngine(state, cfg, batch_size=1, device="cpu")
     assert next(eng.run([imgs]))["boxes"].shape == (1, 8, 4)
+    # python -m roadsurf_tpu_torch.pipeline.detections <config> [--device]
+    config = _detections_config(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detections.main([config])
+    assert not (tmp_path / "tst_detections_at_0dot05_threshold.gpkg").exists()
+    assert detections.main([config, "--device", "cpu"]) == 0
+    assert (tmp_path / "tst_detections_at_0dot05_threshold.gpkg").exists()
+
+
+def test_port_imports_no_pandas():
+    """The card's installation has no pandas: the port carries its tables
+    as plain columns."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{path}:{node.lineno} {n}" for n in names
+                    if n == "pandas" or n.startswith("pandas.")]
+    assert not bad, bad
 
 
 @pytest.fixture(scope="module")
