@@ -36,7 +36,13 @@ exits non-zero:
    ``torch._int_mm``, with the device time of the call's kernels; and,
    untimed, the ragged shapes of ``GEMM_EDGES`` (M, K, N off the tiles and
    off TMA's 16-byte rule, a misaligned ``a``), bit for bit in every
-   mode.
+   mode. K5 (``roi_align_backward``): the poolers' gradient at the
+   training shapes (``K5_CASES``: the YAML's box R=1016 P=7 and mask M=128
+   P=14 at 800 px, adaptive; the fast profile's at 256 px, s=2), its f32
+   accumulators against the plain gradient at B=2 (and its bf16 output
+   within one bf16 rounding), on random and on edge batches (boxes on
+   every level, zero GT boxes, boxes on and across the borders); timed at
+   B=8 beside its plain time and its byte bound.
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
    64 random 256 px tiles, the last one short; K1 must have been launched
@@ -81,6 +87,17 @@ exits non-zero:
    tiles/s, the record counts, the gpkg's size, a cProfile split of the
    4 tiles' host stage, the first batch's host stage timed in one thread,
    and the same run repeated warm (uncounted).
+11. ``train_path``: the port's ``train_model``, ``pipeline.training.train``
+   with the YAML's model at full width (multiscale 640..800, B=8, bf16)
+   for 6 steps over a synthetic tileset (24 train and 8 val zoom-18
+   GeoTIFF tiles of road polygons, in a temporary directory under
+   ``_build/``), from random weights, with its eval and its checkpoint at
+   step 6. Checks: finite losses; per step K2 2, K5 2 and K3 1 launches;
+   ``model_0000005.npz`` in the reference's schema, loaded into
+   ``TileInferenceEngine``, which answers a batch; the eval's six AP keys
+   finite. Its line holds s/step, images/s, the peak of allocated memory,
+   the eval's seconds, a warm step at every size and one step's device
+   split (torch.profiler).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -189,6 +206,8 @@ def _counters() -> dict:
     the poolers per mode."""
     from roadsurf_tpu_torch.ops.int8_gemm import int8_gemm
     from roadsurf_tpu_torch.ops.nms_kernel import nms_keep_mask
+    from roadsurf_tpu_torch.ops.roi_align_backward_kernel import \
+        roi_align_backward
     from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import \
         roi_align_fused_blocked
     from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused
@@ -199,7 +218,8 @@ def _counters() -> dict:
             "roi_align_blocked_int8": (roi_align_fused_blocked,
                                        "launches_int8"),
             "nms": (nms_keep_mask, "launches"),
-            "int8_gemm": (int8_gemm, "launches")}
+            "int8_gemm": (int8_gemm, "launches"),
+            "roi_align_backward": (roi_align_backward, "launches")}
 
 
 def _reset_counts():
@@ -693,6 +713,212 @@ def phase_kernels_k4() -> list:
 
 
 # ---------------------------------------------------------------------------
+# K5: the poolers' gradient
+
+# training shapes: batch, and the cases (name, side, levels, R, P, s, main):
+# the YAML's adaptive poolers at 800 px (box R = min(1024, 1000 + 16), mask
+# M = train_mask_rois 128) and the fast profile's fixed s=2 at 256 px
+TB = 8
+K5_CASES = (("box", 800, (200, 100, 50, 25), 1016, 7, 0, True),
+            ("mask", 800, (200, 100, 50, 25), 128, 14, 0, True),
+            ("box_s2", 256, (64, 32, 16), 1016, 7, 2, False),
+            ("mask_s2", 256, (64, 32, 16), 128, 14, 2, False))
+# the plain gradient's batch (its per-image (R, P, W, C) intermediate is
+# ~1.5 GB at P2 of 800 px), and K5's tolerance against it on the f32
+# accumulators: the same weights, sums in another order
+K5_CHECK_B = 2
+K5_REL, K5_ABS = 1e-5, 1e-6
+
+
+def _k5_inputs(g, Bn: int, side: int, levels, R: int, P: int, edge: bool):
+    """(level shapes, d pooled (Bn, R, P, P, C) bf16, boxes (Bn, R, 4)):
+    boxes with log-uniform sides from 2 px to the image side; the edge
+    batch puts first in every image boxes on every level, zero (padded GT)
+    boxes and boxes on and across the borders."""
+    dev = g.device
+    shapes = [(Bn, s, s, C) for s in levels]
+    dout = torch.randn((Bn, R, P, P, C), generator=g,
+                       device=dev).to(torch.bfloat16)
+    u = torch.rand((Bn, R, 4), generator=g, device=dev)
+    x0, y0 = u[..., 0] * side, u[..., 1] * side
+    w = 2 * (side / 2) ** u[..., 2]
+    h = 2 * (side / 2) ** u[..., 3]
+    boxes = torch.stack([x0, y0, (x0 + w).clamp(max=side),
+                         (y0 + h).clamp(max=side)], -1)
+    if edge:
+        S = float(side)
+        special = torch.tensor([
+            [0, 0, 0, 0], [0, 0, 0, 0],          # padded GT boxes
+            [0, 0, S, S],                        # the whole image
+            [0, S / 2, S, S / 2 + 6],            # full-width thin road
+            [S / 3, 0, S / 3 + 4, S],            # full-height thin road
+            [10, 10, 30, 30],                    # P2
+            [20, 20, 140, 140],                  # P3
+            [40, 40, 290, 290],                  # P4 (P3 at 256 px)
+            [0, 0, 112, 112], [0, 0, 111.9, 111.9],   # level boundaries
+            [0, 0, 224, 224], [0, 0, 223.9, 223.9],
+            [-50, S / 3, 40, S / 3 + 40],        # across the left border
+            [S - 20, S - 20, S + 30, S + 10],    # beyond the far corner
+            [S - 1, 0, S, S],                    # the last column
+            [-4, 100, 24, 128],                  # a sample exactly at c = -1
+        ], dtype=torch.float32, device=dev)
+        k = min(R, len(special))
+        boxes[:, :k] = special[:k]
+    return shapes, dout, boxes.contiguous()
+
+
+def _k5_work(dout, shapes, boxes, lvl, P: int, s: int) -> tuple:
+    """(bytes, FLOPs) the gradient needs: d pooled and the boxes read once,
+    each level's bf16 gradient written once; FLOPs of the separable form,
+    per box and channel 2·P per non-zero x-weight (the x-contraction) and 2
+    per non-zero y-weight and column of the box's region (the
+    y-contraction). Also the bytes of the f32 accumulator this design
+    keeps (zeroed, then read by the cast)."""
+    from roadsurf_tpu_torch.ops.roi_align_kernel import axis_weights
+
+    grads = sum(int(np.prod(sh)) for sh in shapes)
+    nbytes = dout.numel() * 2 + boxes.numel() * 4 + lvl.numel() * 4 \
+        + grads * 2
+    metas = tuple(torch.empty(sh, device="meta") for sh in shapes)
+    flops = 0.0
+    for b in range(boxes.shape[0]):
+        ws = axis_weights(tuple(m[b:b + 1] for m in metas), boxes[b:b + 1],
+                          lvl[b:b + 1], P, s, 2)
+        for wy, wx in ws:
+            on = (wy != 0).any(dim=(2, 3)).float()              # (1, R)
+            nx = (wx != 0).sum(dim=(2, 3)).float() * on         # Σ_q
+            ny = (wy != 0).sum(dim=(2, 3)).float()               # Σ_p
+            cols = (wx != 0).any(dim=2).sum(-1).float() * on    # region
+            flops += float((nx * P + ny * cols).sum()) * 2 * C
+    return nbytes, flops, grads * 8
+
+
+def phase_kernels_k5() -> list:
+    """K5 against its plain version, f32 accumulators compared, at B=2 (and
+    its bf16 output within one bf16 rounding); then K5 timed at the
+    training batch, B=8, beside its plain time and its bounds."""
+    from roadsurf_tpu_torch.ops.roi_align import level_assignment, \
+        reachable_levels
+    from roadsurf_tpu_torch.ops.roi_align_backward_kernel import \
+        roi_align_backward, roi_align_backward_ref
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases = []
+    for edge in (False, True):
+        for name, side, levels, R, P, s, main in K5_CASES:
+            shapes, dout, boxes = _k5_inputs(g, K5_CHECK_B, side, levels, R,
+                                             P, edge)
+            metas = [torch.empty(sh, device="meta") for sh in shapes]
+            n_lev = reachable_levels(metas)
+            shapes = shapes[:n_lev]
+            lvl = level_assignment(boxes, 224, 4, 2, 2 + n_lev - 1) \
+                .contiguous()
+            got = roi_align_backward(dout, shapes, boxes, lvl, P, s,
+                                     dtype=torch.float32)
+            got16 = roi_align_backward(dout, shapes, boxes, lvl, P, s)
+            ref = roi_align_backward_ref(dout, shapes, boxes, lvl, P, s)
+            torch.cuda.synchronize()
+            err, err16, bad, bad16, top = 0.0, 0.0, 0, 0, 0.0
+            for k, k16, r in zip(got, got16, ref):
+                tol = K5_REL * float(r.abs().max()) + K5_ABS
+                e = (k - r).abs()
+                e16 = (k16.float() - r).abs()
+                err, err16 = max(err, float(e.max())), max(err16,
+                                                           float(e16.max()))
+                top = max(top, float(r.abs().max()))
+                bad += int((e > tol).sum())
+                bad16 += int((e16 > REL_TOL * r.abs() + tol).sum())
+            case = {"pooler": name, "edge": edge, "main": main and not edge,
+                    "B_checked": K5_CHECK_B, "R": R, "P": P, "sampling": s,
+                    "C": C, "levels": [sh[1] for sh in shapes],
+                    "boxes_per_level": torch.bincount(
+                        lvl.flatten(), minlength=n_lev).tolist(),
+                    "max_abs_err": err, "max_abs_ref": top,
+                    "out_of_tolerance": bad, "max_abs_err_bf16": err16,
+                    "out_of_tolerance_bf16": bad16,
+                    "finite": all(bool(torch.isfinite(k).all())
+                                  for k in got)}
+            del got, got16, ref
+            if not edge:
+                # timed at the training batch
+                shapes8, dout8, boxes8 = _k5_inputs(g, TB, side, levels, R,
+                                                    P, False)
+                shapes8 = shapes8[:n_lev]
+                lvl8 = level_assignment(boxes8, 224, 4, 2,
+                                        2 + n_lev - 1).contiguous()
+                nbytes, flops, acc_bytes = _k5_work(dout8, shapes8, boxes8,
+                                                    lvl8, P, s)
+                case.update(
+                    B=TB,
+                    ms=_time_ms(lambda: roi_align_backward(
+                        dout8, shapes8, boxes8, lvl8, P, s), 10),
+                    plain_ms=_time_ms(lambda: roi_align_backward_ref(
+                        dout8, shapes8, boxes8, lvl8, P, s), 1, warmup=1),
+                    library_ms=None,
+                    accumulator_bytes=acc_bytes,
+                    bound_ms_with_accumulator=(nbytes + acc_bytes)
+                    / HBM_BYTES_PER_S * 1e3,
+                    **_bound(nbytes, flops))
+                del dout8
+            torch.cuda.empty_cache()
+            _emit({"phase": "kernels", "kernel": "roi_align_backward",
+                   **case})
+            _require(case["finite"] and case["out_of_tolerance"] == 0
+                     and case["out_of_tolerance_bf16"] == 0,
+                     f"roi_align_backward disagrees with its plain version:"
+                     f" {case}")
+            cases.append(case)
+    _emit({"phase": "kernels", "kernel": "roi_align_backward",
+           "case": "autograd", **_pooler_autograd_check(g)})
+    return cases
+
+
+def _pooler_autograd_check(g) -> dict:
+    """The training pooler as the step runs it: bf16 channels_last NCHW
+    levels (the FPN's) read through NHWC views by ``roi_align_multilevel``
+    (K2 forward, K5 backward under ``RoIAlignFunction``), against autograd
+    through K2's plain version on float32 copies; the mask pooler's shapes
+    at 800 px, B=2, on the edge batch. Forward and gradient each within
+    one bf16 rounding of the plain ones."""
+    from roadsurf_tpu_torch.ops.roi_align import level_assignment, \
+        roi_align_multilevel
+    from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import \
+        roi_align_fused_blocked_ref
+
+    _, levels, R, P, s = K5_CASES[1][1:6]
+    shapes, dout, boxes = _k5_inputs(g, K5_CHECK_B, 800, levels, R, P, True)
+    xs = [torch.randn((K5_CHECK_B, C, n, n), generator=g, device=g.device)
+          .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+          .requires_grad_() for n in levels]
+    out = roi_align_multilevel([x.permute(0, 2, 3, 1) for x in xs], boxes,
+                               P, sampling=s)
+    _require(type(out.grad_fn).__name__ == "RoIAlignFunctionBackward",
+             f"the pooler is not under RoIAlignFunction: {out.grad_fn}")
+    out.backward(dout)
+    xf = [x.detach().float().requires_grad_() for x in xs]
+    lvl = level_assignment(boxes, 224, 4, 2, 2 + len(levels) - 1)
+    ref = roi_align_fused_blocked_ref(
+        tuple(x.permute(0, 2, 3, 1) for x in xf), boxes, lvl.contiguous(),
+        P, s)
+    ref.backward(dout.float())
+    res = {"B": K5_CHECK_B, "R": R, "P": P, "sampling": s,
+           "forward": _agreement(out.detach(), ref.detach())}
+    bad, err = 0, 0.0
+    for x, r in zip(xs, xf):
+        e = (x.grad.float() - r.grad).abs()
+        tol = REL_TOL * r.grad.abs() + K5_REL * float(r.grad.abs().max()) \
+            + K5_ABS
+        bad += int((e > tol).sum())
+        err = max(err, float(e.max()))
+        _require(x.grad.dtype == torch.bfloat16
+                 and x.grad.shape == x.shape, "unexpected gradient")
+    res.update(grad_max_abs_err=err, grad_out_of_tolerance=bad)
+    _require(res["forward"]["out_of_tolerance"] == 0 and bad == 0,
+             f"the training pooler disagrees with its plain version: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # main paths
 
 def _random_tree(cfg, gen):
@@ -926,6 +1152,284 @@ def _write_host_dataset(wd: str, tree) -> tuple:
     return tiles, bounds
 
 
+# the training path: zoom-18 tiles of the synthetic tileset (train, val),
+# x/y of its first tile, steps
+TRAIN_TILES, VAL_TILES, TRAIN_X0, TRAIN_Y0 = 24, 8, 137300, 92400
+TRAIN_STEPS = 6
+# per training step: K2 for the box and the mask pooler's forward, K5 for
+# their backward, K3 once for the RPN's per-level NMS (all five levels in
+# one launch; training selects its proposals with no class NMS)
+STEP_LAUNCHES = {"roi_align_blocked": 2, "roi_align_backward": 2, "nms": 1}
+
+
+def _road_polygons(rng, n: int) -> list:
+    """``n`` thin road-like quadrilaterals (4 to 14 px wide, 40 to 250 px
+    long, any direction) as (class 1 or 2, (4, 2) corners clipped to the
+    tile)."""
+    out = []
+    while len(out) < n:
+        cx, cy = rng.uniform(0, TILE, 2)
+        a = rng.uniform(0, np.pi)
+        L, w = rng.uniform(40, 250), rng.uniform(4, 14)
+        d = np.array([np.cos(a), np.sin(a)]) * L / 2
+        e = np.array([-np.sin(a), np.cos(a)]) * w / 2
+        c = np.array([cx, cy])
+        quad = np.clip(np.stack([c - d - e, c + d - e, c + d + e,
+                                 c - d + e]), 0, TILE)
+        if np.ptp(quad[:, 0]) >= 2 and np.ptp(quad[:, 1]) >= 2:
+            out.append((int(rng.integers(1, 3)), quad))
+    return out
+
+
+def _write_train_dataset(wd: str) -> dict:
+    """The synthetic tileset of ``train_model`` in ``wd``: TRAIN_TILES and
+    VAL_TILES zoom-18 256 px GeoTIFF tiles (``trn-images/``,
+    ``val-images/``), each with 1 to 6 road polygons of both classes
+    painted over noise, and their COCO files. Returns the paths."""
+    from roadsurf_tpu_torch.geom import _native
+    from roadsurf_tpu_torch.io.geotiff import write_geotiff
+
+    rng = np.random.default_rng(3)
+    cats = [{"id": 1, "name": "artificial", "supercategory": "road"},
+            {"id": 2, "name": "natural", "supercategory": "road"}]
+    paths = {}
+    tile = 0
+    for ds, n in (("trn", TRAIN_TILES), ("val", VAL_TILES)):
+        img_dir = os.path.join(wd, f"{ds}-images")
+        os.makedirs(img_dir)
+        coco = {"images": [], "annotations": [], "categories": cats}
+        for i in range(n):
+            x, y = TRAIN_X0 + tile % 8, TRAIN_Y0 + tile // 8
+            tile += 1
+            fn = f"18_{x}_{y}.tif"
+            img = rng.integers(60, 120, (TILE, TILE, 3), np.uint8)
+            for cls, quad in _road_polygons(rng, int(rng.integers(1, 7))):
+                m = _native.rasterize(_native.pack([[np.concatenate(
+                    [quad, quad[:1]])]]), 0.0, 1.0, 0.0, 1.0, TILE, TILE)
+                img[m > 0] = (200, 200, 190) if cls == 1 else (150, 110, 60)
+                x0, y0 = quad.min(0)
+                x1, y1 = quad.max(0)
+                coco["annotations"].append({
+                    "id": len(coco["annotations"]) + 1, "image_id": i,
+                    "category_id": cls,
+                    "segmentation": [quad.reshape(-1).tolist()],
+                    "bbox": [x0, y0, x1 - x0, y1 - y0],
+                    "area": float(m.sum()), "iscrowd": 0})
+            write_geotiff(os.path.join(img_dir, fn), img,
+                          _tile_bounds(x, y))
+            coco["images"].append({"id": i, "file_name": fn, "width": TILE,
+                                   "height": TILE})
+        paths[ds] = os.path.join(wd, f"COCO_{ds}.json")
+        paths[f"{ds}_images"] = img_dir
+        with open(paths[ds], "w") as f:
+            json.dump(coco, f)
+    return paths
+
+
+def _device_kernels(fn) -> tuple:
+    """Run ``fn`` under torch.profiler (CUPTI): ((name, device ms, count)
+    of every device kernel, longest first; the wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kernels.append((e.key, us / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    return kernels, wall * 1e3
+
+
+def _split(kernels, wall_ms: float) -> dict:
+    busy = sum(k[1] for k in kernels)
+    cats: dict = {}
+    for name, ms, _ in kernels:
+        cats[_category(name)] = cats.get(_category(name), 0.0) + ms
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "device_busy_share": busy / wall_ms if wall_ms else None,
+            "device_ms_by_category": cats,
+            "top_kernels": [{"name": k[0][:120], "ms": k[1], "count": k[2]}
+                            for k in kernels[:12]]}
+
+
+def phase_train_path() -> dict:
+    """The port's ``train_model``: ``pipeline.training.train`` with the
+    YAML's configuration (R50-FPN at full width, multiscale 640..800, B=8,
+    adaptive pooler sampling, exact NMS, 16 instances an image) over the
+    synthetic tileset, cut to TRAIN_STEPS steps with its eval and its
+    checkpoint at the last one, from random weights (there is no ImageNet
+    R-50 here). Checks: every step's losses finite; each step's launches
+    (STEP_LAUNCHES, every other count 0); ``model_0000005.npz`` in the
+    reference's schema, loaded through ``load_params`` and
+    ``from_jax_params`` into ``TileInferenceEngine``, which answers a
+    batch; the eval's six AP keys finite. Numbers: s/step over steps 2..6
+    (CUDA events), images/s, the peak of allocated memory, the eval's
+    seconds; then (uncounted) a warm step at each MIN_SIZE_TRAIN size and
+    one more at 800 px under torch.profiler."""
+    import tempfile
+    from dataclasses import replace
+
+    from roadsurf_tpu_torch.engine import TileInferenceEngine
+    from roadsurf_tpu_torch.models import init_params
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+    from roadsurf_tpu_torch.pipeline import training
+    from roadsurf_tpu_torch.utils.weights import _flatten, from_jax_params, \
+        load_params
+
+    cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
+    _require((cfg.min_size_train, cfg.ims_per_batch, cfg.pooler_sampling_ratio,
+              cfg.fast_nms, cfg.freeze_at, cfg.compute_dtype)
+             == ((640, 672, 704, 736, 768, 800), TB, 0, False, 2,
+                 "bfloat16"), f"unexpected training config {cfg}")
+    cfg = replace(cfg, max_iter=TRAIN_STEPS, eval_period=TRAIN_STEPS,
+                  checkpoint_period=TRAIN_STEPS)
+    steps, evals = [], []
+    step_fn, eval_fn = training.train_step, training.evaluate_dataset
+
+    def timed_step(cfg_, size):
+        fn = step_fn(cfg_, size)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            before = _read_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            after = _read_counts()
+            steps.append({"size": size, "ms": start.elapsed_time(end),
+                          "launches": {k: after[k] - before[k]
+                                       for k in after}})
+            return out
+        return run
+
+    def timed_eval(*args, **kw):
+        t0 = time.perf_counter()
+        out = eval_fn(*args, **kw)
+        evals.append({"seconds": time.perf_counter() - t0, "ap": out})
+        return out
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    training.train_step, training.evaluate_dataset = timed_step, timed_eval
+    try:
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as wd:
+            paths = _write_train_dataset(wd)
+            log_dir = os.path.join(wd, "logs")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            state = training.train(
+                cfg, paths["trn"], paths["trn_images"], log_dir,
+                val_coco=paths["val"], val_images=paths["val_images"],
+                max_iter=TRAIN_STEPS, batch_size=TB, image_size=800,
+                max_instances=16, log_every=1, seed=7, multiscale=True)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = _read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+                lines = [json.loads(ln) for ln in f]
+
+            # warm steps: a size's first step takes ~0.3 s more than its
+            # next ones (the convs' first shapes), and 6 steps over 6
+            # sizes are mostly first visits; two steps at every size,
+            # the second timed, then one more at 800 px under the profiler
+            ds = training.CocoTileDataset(paths["trn"], paths["trn_images"],
+                                          16)
+            rng = np.random.default_rng(0)
+            warm = {}
+            for size in cfg.min_size_train:
+                batch = training.to_device(training.make_batch(
+                    ds, rng, rng.permutation(len(ds))[:TB],
+                    target_size=size), "cuda")
+                step = step_fn(cfg, size)
+                step(state, batch)
+                warm[size] = _time_ms(lambda: step(state, batch), 1,
+                                      warmup=0)
+            kernels, wall = _device_kernels(lambda: step(state, batch))
+            prof = _split(kernels, wall)
+
+            # the checkpoint: the reference's schema, and the engine on it
+            ckpt = os.path.join(log_dir,
+                                f"model_{TRAIN_STEPS - 1:07d}.npz")
+            tree, ck_step = load_params(ckpt)
+            want = {k: v.shape for k, v in _flatten(init_params(
+                cfg, torch.Generator().manual_seed(0))).items()}
+            got = {k: v.shape for k, v in _flatten(tree).items()}
+            _require(got == want and ck_step == TRAIN_STEPS,
+                     f"checkpoint {ckpt} (step {ck_step}) is not in the "
+                     f"reference's schema")
+            eng = TileInferenceEngine(from_jax_params(tree),
+                                      from_detectron2_yaml(
+                                          os.path.join(ROOT, YAML)),
+                                      batch_size=TB, mask_format="bits")
+            val = np.stack([training.CocoTileDataset(
+                paths["val"], paths["val_images"], 16).load(i)[0]
+                for i in range(TB)])
+            out = next(eng.run([val]))
+            _require(out["boxes"].shape == (TB, 100, 4)
+                     and all(bool(np.isfinite(out[k]).all())
+                             for k in ("boxes", "scores")),
+                     "the engine on the checkpoint gave no finite answer")
+    finally:
+        training.train_step, training.evaluate_dataset = step_fn, eval_fn
+
+    losses = [ln for ln in lines if "total" in ln]
+    _require(len(losses) == TRAIN_STEPS and all(
+        np.isfinite(ln[k]) for ln in losses for k in (
+            "loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg",
+            "loss_mask", "total", "lr", "imgs_per_sec")),
+        f"losses not finite: {losses}")
+    _require(len(steps) == TRAIN_STEPS and all(
+        s["launches"] == {k: STEP_LAUNCHES.get(k, 0) for k in s["launches"]}
+        for s in steps), f"a step's launches differ from {STEP_LAUNCHES}: "
+        f"{[s['launches'] for s in steps]}")
+    ap = evals[0]["ap"] if len(evals) == 1 else {}
+    _require(sorted(ap) == sorted(f"{t}/{k}" for t in ("bbox", "segm")
+                                  for k in ("AP", "AP50", "AP75"))
+             and all(np.isfinite(v) for v in ap.values()),
+             f"eval: {evals}")
+    timed = [s["ms"] for s in steps[1:]]
+    s_step = float(np.mean(timed)) / 1e3
+    res = {"phase": "train_path",
+           "profile": f"from_detectron2_yaml({YAML!r}), multiscale "
+                      f"{list(cfg.min_size_train)}",
+           "reduced": {"max_iter": TRAIN_STEPS,
+                       "eval_period": TRAIN_STEPS,
+                       "checkpoint_period": TRAIN_STEPS,
+                       "weights": "random (init_params, seed 7)",
+                       "tiles": {"trn": TRAIN_TILES, "val": VAL_TILES}},
+           "batch": TB, "run_s": run_s, "steps": steps,
+           "s_per_step": s_step, "images_per_s": TB / s_step,
+           "warm_ms_by_size": warm,
+           "warm_s_per_step": float(np.mean(list(warm.values()))) / 1e3,
+           "warm_images_per_s": TB / (float(np.mean(list(warm.values())))
+                                      / 1e3),
+           "max_memory_allocated": peak, "launches": launches,
+           "launches_per_step": STEP_LAUNCHES,
+           "losses": losses, "eval": {"seconds": evals[0]["seconds"],
+                                      "ap": ap},
+           "checkpoint": os.path.basename(ckpt),
+           "profile_step": prof}
+    _emit(res)
+    return res
+
+
 def _host_profile(fn) -> dict:
     """Share of ``fn``'s host time by step (cProfile, inclusive times of
     the steps' functions; cProfile adds cost to Python calls, not to
@@ -1100,8 +1604,11 @@ def phase_host_stage():
 def _category(name: str) -> str:
     n = name.lower()
     # K1 and K2 run one device code (roi_align_staged_kernel): on the fast
-    # paths "roi_align" is K1, on the parity paths K2
-    for cat, keys in (("roi_align", ("roi_align",)),
+    # paths "roi_align" is K1, on the parity and training paths K2; K5 is
+    # its scatter and its cast to bf16
+    for cat, keys in (("roi_align_backward", ("roi_align_backward",
+                                              "cast_bf16")),
+                      ("roi_align", ("roi_align",)),
                       ("nms", ("nms",)),
                       ("conv", ("conv", "xmma", "implicit", "cudnn",
                                 "nhwc", "winograd")),
@@ -1116,36 +1623,9 @@ def _category(name: str) -> str:
 def phase_profile(label: str, eng, batches, n: int = 2) -> dict:
     """Device time by kernel over ``n`` steady batches of a main path
     (torch.profiler, CUPTI), and the device's busy share of the wall."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        list(eng.run(iter(batches[:n])))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            kernels.append((e.key, us / 1e3, e.count))
-    kernels.sort(key=lambda k: -k[1])
-    busy = sum(k[1] for k in kernels)
-    cats: dict = {}
-    for name, ms, _ in kernels:
-        cats[_category(name)] = cats.get(_category(name), 0.0) + ms
+    kernels, wall = _device_kernels(lambda: list(eng.run(iter(batches[:n]))))
     res = {"phase": "profile", "path": label, "batches": n,
-           "tiles": sum(len(b) for b in batches[:n]),
-           "wall_ms": wall * 1e3, "device_ms": busy,
-           "device_busy_share": busy / (wall * 1e3) if wall else None,
-           "device_ms_by_category": cats,
-           "top_kernels": [{"name": k[0][:120], "ms": k[1], "count": k[2]}
-                           for k in kernels[:12]]}
+           "tiles": sum(len(b) for b in batches[:n]), **_split(kernels, wall)}
     _emit(res)
     return res
 
@@ -1189,7 +1669,8 @@ def _record(name, source, replaces, launches, cases, err_key, per_key):
             # the device time of its kernels and of torch._int_mm's
             **{k: sum(c[k] for c in timed) for k in (
                 "box_bytes", "box_bytes_ms", "pair_ms", "sweep_ms",
-                "device_ms", "transpose_ms", "library_device_ms")
+                "device_ms", "transpose_ms", "library_device_ms",
+                "bound_ms_with_accumulator")
                if timed and k in timed[0]},
             "per_call": {c[per_key]: {k: c.get(k) for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1214,6 +1695,10 @@ KERNELS = {
                                "roi_align_blocked_int8"),
     "nms": ("nms.cu", "nms_pallas.py:59", "nms"),
     "int8_gemm": ("int8_gemm.cu", "int8_gemm.py:79", "int8_gemm"),
+    # no Pallas kernel: the reference takes this gradient from XLA's
+    # autodiff of its separable pooler
+    "roi_align_backward": ("roi_align_backward.cu", "roi_align.py:318",
+                           "roi_align_backward"),
 }
 
 
@@ -1245,7 +1730,8 @@ def main() -> int:
              # version's
              "nms": [dict(c, max_abs_err=c["mismatches"])
                      for c in phase_kernels_k3()],
-             "int8_gemm": phase_kernels_k4()}
+             "int8_gemm": phase_kernels_k4(),
+             "roi_align_backward": phase_kernels_k5()}
     runs = {}
     for label in PATHS:
         fn = phase_main_path_parity if "parity" in label \
@@ -1261,11 +1747,13 @@ def main() -> int:
     del eng, batches
     torch.cuda.empty_cache()
     runs["host_stage"] = phase_host_stage()
+    torch.cuda.empty_cache()
+    runs["train_path"] = phase_train_path()
 
     # the times are one forward's calls at the main paths' shapes: both
     # poolers (K2 at its adaptive sampling), the RPN's and the class NMS
     # (K3); K4's are its raw GEMMs at the int8 stack's 1x1 and box FC1
-    # shapes
+    # shapes; K5's one training step's, box and mask poolers at B=8
     _emit({"kernels": [
         _record(name, "roadsurf_tpu_torch/csrc/" + src,
                 "roadsurf_tpu/ops/" + tpu,

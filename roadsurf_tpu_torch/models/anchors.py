@@ -85,3 +85,40 @@ def clip_boxes(boxes: torch.Tensor, h: float, w: float) -> torch.Tensor:
         boxes[..., 2].clamp(0, w),
         boxes[..., 3].clamp(0, h),
     ], dim=-1)
+
+
+def get_deltas(src_boxes: torch.Tensor, target_boxes: torch.Tensor,
+               weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Encode target boxes w.r.t. source boxes (both XYXY): the regression
+    targets, the reference's ``get_deltas`` operation for operation."""
+    wx, wy, ww, wh = weights
+    src_w = src_boxes[..., 2] - src_boxes[..., 0]
+    src_h = src_boxes[..., 3] - src_boxes[..., 1]
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+    tgt_w = target_boxes[..., 2] - target_boxes[..., 0]
+    tgt_h = target_boxes[..., 3] - target_boxes[..., 1]
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+    eps = 1e-8
+    return torch.stack([
+        wx * (tgt_cx - src_cx) / src_w.clamp(min=eps),
+        wy * (tgt_cy - src_cy) / src_h.clamp(min=eps),
+        ww * torch.log(tgt_w.clamp(min=eps) / src_w.clamp(min=eps)),
+        wh * torch.log(tgt_h.clamp(min=eps) / src_h.clamp(min=eps)),
+    ], dim=-1)
+
+
+def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., N, 4), b (..., M, 4) -> (..., N, M) IoU, 0 where the union
+    is empty."""
+    area_a = (a[..., 2] - a[..., 0]).clamp(min=0) \
+        * (a[..., 3] - a[..., 1]).clamp(min=0)
+    area_b = (b[..., 2] - b[..., 0]).clamp(min=0) \
+        * (b[..., 3] - b[..., 1]).clamp(min=0)
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(inter))

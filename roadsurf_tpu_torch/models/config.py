@@ -107,7 +107,7 @@ class ModelConfig:
     int8_backbone: bool = False
     int8_scope: str = ""
     int8_pyramid: bool = False
-    # training knobs (reference config.py:124-147); training is not ported
+    # training knobs (reference config.py:124-147; engine/train.py)
     train_remat: bool = False
     train_mask_rois: int = 128
     train_head_chunks: int = 1

@@ -24,7 +24,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("roi_align", "roi_align_blocked", "nms", "int8_gemm")
+SOURCES = ("roi_align", "roi_align_blocked", "nms", "int8_gemm",
+           "roi_align_backward")
 
 
 def nvcc_path() -> str:

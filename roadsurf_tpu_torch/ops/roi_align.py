@@ -16,6 +16,12 @@ reference sends adaptive sampling on small maps to its XLA path; K2
 computes the same function. Each wrapper launches its kernel on CUDA
 tensors and runs its plain version on CPU tensors. Int8 pyramid levels
 (``feat_scales``) take the same routes, in the kernels' int8 mode.
+
+Training: where the levels require a gradient, the pooling goes through
+:class:`RoIAlignFunction`, whose forward is the route above and whose
+backward is K5 (``roi_align_backward_kernel.py``; its plain version on CPU
+tensors). Boxes carry no gradient, as in the reference, whose proposals
+are ``stop_gradient`` and whose appended GT boxes are data.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .roi_align_backward_kernel import roi_align_backward
 from .roi_align_blocked_kernel import roi_align_fused_blocked, \
     roi_align_fused_blocked_ref
 from .roi_align_kernel import roi_align_fused, roi_align_fused_ref
@@ -90,8 +97,36 @@ def roi_align_multilevel(feats: list, boxes: torch.Tensor, out_size: int,
         else roi_align_fused
     feats, lvl = _levels(feats, boxes, canonical_size, canonical_level,
                          min_level)
+    if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
+        if feat_scales is not None:
+            raise ValueError("int8 pyramid levels take no gradient")
+        return RoIAlignFunction.apply(fn, boxes.detach().contiguous(), lvl,
+                                      out_size, sampling, min_level, *feats)
     return fn(feats, boxes.contiguous(), lvl, out_size, sampling, min_level,
               feat_scales)
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """Pooling whose forward is K1 or K2 (``fn``, the route of
+    :func:`roi_align_multilevel`) and whose backward is K5: the levels'
+    gradients from the pooled output's, with the forward's weights. Only
+    the boxes, their levels and the levels' shapes are kept for the
+    backward, not the levels."""
+
+    @staticmethod
+    def forward(ctx, fn, boxes, lvl, out_size, sampling, min_level, *feats):
+        ctx.save_for_backward(boxes, lvl)
+        ctx.args = (out_size, sampling, min_level)
+        ctx.shapes = [f.shape for f in feats]
+        ctx.dtype = feats[0].dtype
+        return fn(feats, boxes, lvl, out_size, sampling, min_level, None)
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, lvl = ctx.saved_tensors
+        grads = roi_align_backward(grad.contiguous(), ctx.shapes, boxes, lvl,
+                                   *ctx.args, dtype=ctx.dtype)
+        return (None,) * 6 + tuple(grads)
 
 
 def roi_align_multilevel_ref(feats: list, boxes: torch.Tensor,

@@ -1,0 +1,162 @@
+"""The gradient of multilevel ROIAlignV2 with respect to the levels: the
+Hopper kernel's wrapper (K5) and its plain PyTorch version.
+
+The reference package has no TPU kernel for this gradient: it trains with
+its XLA separable pooler and takes the gradient from XLA's autodiff
+(roadsurf_tpu/ops/roi_align.py:318 ``_roi_align_separable``), because its
+fused kernels have no VJP. The port's training forward pools with K1 and
+K2 (``ops/roi_align.py`` routes a pooling whose levels require a gradient
+through an ``autograd.Function``), so its backward is this kernel:
+``csrc/roi_align_backward.cu``, CUDA C++ for ``sm_90a`` built by
+``ops/cuda_build.py``. For box r on level l with the forward's axis weights
+``wy`` (P, H_l) and ``wx`` (P, W_l) it adds ``wyᵀ · dP[b, r] · wx``, per
+channel, into the level's gradient, in both sampling modes (a fixed s×s
+grid, and the adaptive n = ceil(bin cells)); the weights come from the
+forward's device code (``csrc/roi_align_staged.cuh``), bit for bit.
+
+What bounds it on an H100: its scatter. The first design is the simple
+one (the source's note has the details): a block per box, threads over the
+channels, the box's weights in shared memory, one f32 ``atomicAdd`` per
+cell of the box's region and channel into a zeroed float32 accumulator,
+then a cast to bf16. Atomics add in an order that varies from run to run,
+so the last bits of the float32 sums do too; that is not a fault. Its
+byte bound counts dP read once and the levels' gradients written once
+(``chip_smoke.py`` computes it, and beside it the bound with the
+accumulator's zeroing and read); ``csrc/roi_align_backward.cu`` has the
+measured times.
+
+On CPU tensors :func:`roi_align_backward` runs the plain version, the
+explicit transposed contractions of the forward's plain version
+(``roi_align_fused_ref``): per level, ``t = dP · wx`` then ``wyᵀ · t``.
+On CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import cuda_build
+from .roi_align_kernel import KERNEL, MAX_C, MAX_LEVELS, MAX_OUT, \
+    MAX_SAMPLING, axis_weights
+
+
+def _meta_levels(shapes):
+    """Shape-only stand-ins for the levels (``axis_weights`` reads their
+    sides)."""
+    return tuple(torch.empty(s, device="meta") for s in shapes)
+
+
+def roi_align_backward_ref(dout, shapes, boxes, lvl, out_size: int,
+                           sampling: int, min_level: int = 2) -> list:
+    """The plain version: d levels from d pooled ``dout`` (B, R, P, P, C)
+    for levels of ``shapes`` [(B, H_l, W_l, C), ...], one image at a time
+    (the (R, P, W, C) intermediate is ~1.5 GB an image at P2 of 800 px and
+    R = 1016). Returns float32 (B, H_l, W_l, C) tensors."""
+    grads = [torch.zeros(s, dtype=torch.float32, device=dout.device)
+             for s in shapes]
+    metas = _meta_levels(shapes)
+    for b in range(boxes.shape[0]):
+        g = dout[b].float()                                  # (R, P, P, C)
+        ws = axis_weights(tuple(m[b:b + 1] for m in metas), boxes[b:b + 1],
+                          lvl[b:b + 1], out_size, sampling, min_level)
+        for l, (wy, wx) in enumerate(ws):
+            t = torch.einsum("rpqc,rqw->rpwc", g, wx[0])
+            grads[l][b] = torch.einsum("rph,rpwc->hwc", wy[0], t)
+    return grads
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.library("roi_align_backward")
+    lib.roi_align_backward_run.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * (2 * MAX_LEVELS + 2)
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.roi_align_backward_run.restype = ctypes.c_int
+    return lib
+
+
+def smem_bytes(out_size: int, side: int) -> int:
+    """Shared memory a block takes (``roi_align_backward_run`` computes the
+    same sum): both axes' weight tables over the longest level side, and
+    each bin's non-zero range."""
+    return 4 * 2 * out_size * side + 4 * 4 * out_size
+
+
+def _check(dout, shapes, boxes, lvl, out_size, sampling, dtype):
+    if not 1 <= len(shapes) <= MAX_LEVELS:
+        raise ValueError(f"1..{MAX_LEVELS} levels expected, got "
+                         f"{len(shapes)}")
+    B, R = boxes.shape[:2]
+    C = shapes[0][-1]
+    for s in shapes:
+        if len(s) != 4 or s[0] != B or s[-1] != C:
+            raise ValueError(f"level shape {tuple(s)} does not match "
+                             f"(B={B}, H, W, C={C})")
+    if C % 8 or C > MAX_C:
+        raise ValueError(f"channel count must be a multiple of 8 up to "
+                         f"{MAX_C}, got {C}")
+    if not (0 <= sampling <= MAX_SAMPLING and 1 <= out_size <= MAX_OUT):
+        raise ValueError(f"unsupported out_size={out_size}, "
+                         f"sampling={sampling}")
+    dev = boxes.device
+    if dout.shape != (B, R, out_size, out_size, C) \
+            or dout.dtype != torch.bfloat16 or dout.device != dev \
+            or not dout.is_contiguous() or dout.data_ptr() % 16:
+        raise ValueError("dout must be contiguous bf16 (B, R, P, P, C) on "
+                         "the boxes' device, 16-byte aligned")
+    if boxes.shape != (B, R, 4) or boxes.dtype != torch.float32 \
+            or not boxes.is_contiguous():
+        raise ValueError("boxes must be contiguous float32 (B, R, 4)")
+    if lvl.shape != (B, R) or lvl.dtype != torch.int32 \
+            or lvl.device != dev or not lvl.is_contiguous():
+        raise ValueError("lvl must be contiguous int32 (B, R) on the boxes' "
+                         "device")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"level gradients in bf16 or float32, not {dtype}")
+    side = max(max(s[1], s[2]) for s in shapes)
+    if smem_bytes(out_size, side) > KERNEL["kMaxSmem"]:
+        raise ValueError(f"levels of side {side} at out_size={out_size} "
+                         f"exceed a block's shared memory")
+
+
+def roi_align_backward(dout, shapes, boxes, lvl, out_size: int,
+                       sampling: int, min_level: int = 2,
+                       dtype=torch.bfloat16) -> list:
+    """d levels in ``dtype`` ((B, H_l, W_l, C) each, for levels of
+    ``shapes``) from d pooled ``dout`` (B, R, P, P, C); boxes (B, R, 4)
+    f32 XYXY, lvl (B, R) int32. Launches the kernel for CUDA tensors (bf16
+    ``dout``; ``dtype`` float32 returns the kernel's accumulators, bf16
+    their cast) and runs the plain version for CPU tensors."""
+    shapes = [tuple(int(d) for d in s) for s in shapes]
+    if boxes.device.type == "cpu":
+        return [g.to(dtype) for g in roi_align_backward_ref(
+            dout, shapes, boxes, lvl, out_size, sampling, min_level)]
+    if boxes.device.type != "cuda":
+        raise ValueError(f"no roi_align backward for {boxes.device.type} "
+                         f"tensors")
+    _check(dout, shapes, boxes, lvl, out_size, sampling, dtype)
+    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
+    dev = boxes.device
+    acc = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    out = None if dtype == torch.float32 else torch.empty(
+        sum(sizes), dtype=dtype, device=dev)
+    B, R = boxes.shape[:2]
+    dims = []
+    for li in range(MAX_LEVELS):
+        dims += list(shapes[li][1:3]) if li < len(shapes) else [0, 0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _library().roi_align_backward_run(
+        acc.data_ptr(), None if out is None else out.data_ptr(), *dims,
+        len(shapes), min_level, boxes.data_ptr(), lvl.data_ptr(),
+        dout.data_ptr(), B, R, shapes[0][-1], out_size, sampling, dev.index,
+        stream)
+    cuda_build.check("roi_align_backward", rc, "roi_align_backward")
+    roi_align_backward.launches += 1
+    flat = acc if out is None else out
+    return [part.view(s) for part, s in zip(flat.split(sizes), shapes)]
+
+
+roi_align_backward.launches = 0

@@ -26,6 +26,14 @@ the uint8-direct stem's bias map (S/2, S/2, C) becomes (1, C, S/2, S/2),
 which adds to an NCHW (channels_last) conv output.
 
 Every leaf of the tree must be consumed; anything left over raises.
+
+Training keeps a **train state** instead (:func:`from_jax_train_params`):
+the same layouts, float32 master tensors, with each backbone unit kept
+unfolded as ``{w: OIHW, scale, bias}`` so that ``w`` trains while the
+FrozenBN ``scale`` and ``bias`` stay fixed; :func:`to_jax_params` gives
+back the reference's schema (what ``.npz`` checkpoints hold), and
+:func:`fold_train_params` the inference state that :func:`from_jax_params`
+builds from the same tree, bit for bit.
 """
 
 from __future__ import annotations
@@ -208,29 +216,23 @@ def from_jax_quant(tree) -> dict:
     return q
 
 
-def from_jax_params(tree) -> dict:
-    """The reference's parameter tree (numpy arrays, or anything
-    ``np.asarray`` takes) -> the port's state of float32 CPU tensors, with
-    its int8 groups (``quant``, ``backbone_q``) where the tree has them."""
-    lv = _Leaves(tree)
-    backbone = {"stem": _conv_bn(lv, "backbone/stem")}
+def _backbone(lv: _Leaves, unit) -> dict:
+    """The backbone's units, each ``unit(lv, base)``."""
+    backbone = {"stem": unit(lv, "backbone/stem")}
     for stage in ("res2", "res3", "res4", "res5"):
         blocks, i = [], 0
         while lv.has(f"backbone/{stage}/{i}/conv1/w"):
             base = f"backbone/{stage}/{i}"
-            bp = {n: _conv_bn(lv, f"{base}/{n}")
-                  for n in ("conv1", "conv2", "conv3")}
-            if lv.has(f"{base}/shortcut/w"):
-                bp["shortcut"] = _conv_bn(lv, f"{base}/shortcut")
-            blocks.append(bp)
+            blocks.append({n: unit(lv, f"{base}/{n}")
+                           for n in ("conv1", "conv2", "conv3", "shortcut")
+                           if lv.has(f"{base}/{n}/w")})
             i += 1
         backbone[stage] = blocks
-    fpn = {f"{kind}{i}": _conv_b(lv, f"fpn/{kind}{i}")
-           for i in range(2, 6) for kind in ("lateral", "output")}
-    rpn = {n: _conv_b(lv, f"rpn/{n}")
-           for n in ("conv", "objectness", "deltas")}
-    box = {n: _linear(lv, f"box_head/{n}")
-           for n in ("fc1", "fc2", "cls", "bbox")}
+    return backbone
+
+
+def _heads(lv: _Leaves) -> dict:
+    """FPN, RPN head, box head and mask head, in the torch layouts."""
     mask, i = {}, 1
     while lv.has(f"mask_head/conv{i}/w"):
         mask[f"conv{i}"] = _conv_b(lv, f"mask_head/conv{i}")
@@ -239,8 +241,21 @@ def from_jax_params(tree) -> dict:
                               .transpose(3, 2, 0, 1)),
                       "b": _t(lv.take("mask_head/deconv/b"))}
     mask["predictor"] = _conv_b(lv, "mask_head/predictor")
-    state = {"backbone": backbone, "fpn": fpn, "rpn": rpn,
-             "box_head": box, "mask_head": mask}
+    return {"fpn": {f"{kind}{i}": _conv_b(lv, f"fpn/{kind}{i}")
+                    for i in range(2, 6) for kind in ("lateral", "output")},
+            "rpn": {n: _conv_b(lv, f"rpn/{n}")
+                    for n in ("conv", "objectness", "deltas")},
+            "box_head": {n: _linear(lv, f"box_head/{n}")
+                         for n in ("fc1", "fc2", "cls", "bbox")},
+            "mask_head": mask}
+
+
+def from_jax_params(tree) -> dict:
+    """The reference's parameter tree (numpy arrays, or anything
+    ``np.asarray`` takes) -> the port's state of float32 CPU tensors, with
+    its int8 groups (``quant``, ``backbone_q``) where the tree has them."""
+    lv = _Leaves(tree)
+    state = {"backbone": _backbone(lv, _conv_bn), **_heads(lv)}
     quant = _quant(lv, "quant")
     if quant:
         state["quant"] = quant
@@ -248,6 +263,94 @@ def from_jax_params(tree) -> dict:
         state["backbone_q"] = _qbackbone(lv, "backbone_q")
     lv.done()
     return state
+
+
+def _unit(lv: _Leaves, base: str) -> dict:
+    """A FrozenBN unit of the train state: OIHW ``w``, ``scale``, ``bias``,
+    unfolded."""
+    return {"w": _t(lv.take(f"{base}/w").transpose(3, 2, 0, 1)),
+            "scale": _t(lv.take(f"{base}/scale")),
+            "bias": _t(lv.take(f"{base}/bias"))}
+
+
+def from_jax_train_params(tree) -> dict:
+    """The reference's parameter tree (numpy arrays, or anything
+    ``np.asarray`` takes) -> the port's train state of float32 CPU
+    tensors: :func:`from_jax_params`'s layouts with the backbone's units
+    unfolded (:func:`_unit`). Every leaf must be consumed; int8 groups are
+    refused (training runs none, as in the reference)."""
+    lv = _Leaves(tree)
+    state = {"backbone": _backbone(lv, _unit), **_heads(lv)}
+    lv.done()
+    return state
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def to_jax_params(params: dict) -> dict:
+    """The inverse of :func:`from_jax_train_params`: the reference's schema
+    (HWIO convs, (in, out) linears, (kh, kw, out, in) deconv) as float32
+    numpy arrays, the tree ``save_params`` writes."""
+    def conv(p):
+        return {k: _np(v).transpose(2, 3, 1, 0) if k == "w" else _np(v)
+                for k, v in p.items()}
+
+    bb = params["backbone"]
+    backbone = {"stem": conv(bb["stem"])}
+    for stage in ("res2", "res3", "res4", "res5"):
+        backbone[stage] = [{n: conv(u) for n, u in bp.items()}
+                           for bp in bb[stage]]
+    return {"backbone": backbone,
+            "fpn": {n: conv(u) for n, u in params["fpn"].items()},
+            "rpn": {n: conv(u) for n, u in params["rpn"].items()},
+            "box_head": {n: {"w": _np(u["w"]).T, "b": _np(u["b"])}
+                         for n, u in params["box_head"].items()},
+            # the deconv's (in, out, kh, kw) goes back to (kh, kw, out, in)
+            # by the convs' permutation
+            "mask_head": {n: conv(u)
+                          for n, u in params["mask_head"].items()}}
+
+
+def fold_unit(p: dict) -> dict:
+    """A FrozenBN unit folded as :func:`from_jax_params` folds it: ``{w:
+    w·scale per output channel, b: bias}``, float32 (differentiable in
+    ``w``)."""
+    return {"w": p["w"] * p["scale"][:, None, None, None], "b": p["bias"]}
+
+
+def fold_train_params(params: dict) -> dict:
+    """The train state's parameters -> the inference state (the layout of
+    :func:`from_jax_params`, float32, on their device, without gradient)."""
+    with torch.no_grad():
+        bb = params["backbone"]
+        backbone = {"stem": fold_unit(bb["stem"])}
+        for stage in ("res2", "res3", "res4", "res5"):
+            backbone[stage] = [{n: fold_unit(u) for n, u in bp.items()}
+                               for bp in bb[stage]]
+
+        def plain(tree):
+            if isinstance(tree, dict):
+                return {k: plain(v) for k, v in tree.items()}
+            return tree.detach()
+
+        return {"backbone": backbone,
+                **{k: plain(params[k])
+                   for k in ("fpn", "rpn", "box_head", "mask_head")}}
+
+
+def latest_checkpoint(log_dir: str, prefix: str = "model_") -> str | None:
+    """The newest ``{prefix}<step>.npz`` in ``log_dir`` (highest step), or
+    None (the reference's ``utils/checkpoint.py:latest_checkpoint``)."""
+    if not os.path.isdir(log_dir):
+        return None
+    best, best_step = None, -1
+    for f in os.listdir(log_dir):
+        m = re.fullmatch(rf"{prefix}(\d+)\.npz", f)
+        if m and int(m.group(1)) > best_step:
+            best, best_step = os.path.join(log_dir, f), int(m.group(1))
+    return best
 
 
 # groups of the state placed on the device with their own dtypes (int8

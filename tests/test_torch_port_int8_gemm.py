@@ -81,10 +81,10 @@ def test_requantize_folded_exact():
 
 def test_k4_is_built_with_the_other_kernels_and_needs_no_nvcc_to_import():
     """The module imported above without nvcc (nothing builds at import);
-    ``cuda_build`` builds ``csrc/int8_gemm.cu`` beside the poolers and
-    NMS."""
+    ``cuda_build`` builds ``csrc/int8_gemm.cu`` beside the poolers, NMS
+    and the poolers' gradient."""
     assert cuda_build.SOURCES == ("roi_align", "roi_align_blocked", "nms",
-                                  "int8_gemm")
+                                  "int8_gemm", "roi_align_backward")
     assert (cuda_build.CSRC / "int8_gemm.cu").exists()
 
 

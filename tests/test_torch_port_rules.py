@@ -121,6 +121,56 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(state_and_cfg,
     assert not (tmp_path / "tst_detections_at_0dot05_threshold.gpkg").exists()
     assert detections.main([config, "--device", "cpu"]) == 0
     assert (tmp_path / "tst_detections_at_0dot05_threshold.gpkg").exists()
+    # python -m roadsurf_tpu_torch.pipeline.training <config> [--device]
+    # (tests/test_torch_train_loop.py trains with --device cpu)
+    from roadsurf_tpu_torch.pipeline import training
+
+    train_cfg = tmp_path / "train.yaml"
+    train_cfg.write_text(
+        "train_model.py:\n"
+        f"  working_directory: {tmp_path / 'train'}\n"
+        "  COCO_files: {trn: COCO_trn.json}\n"
+        "  detectron2_config_file: absent.yaml\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        training.main([str(train_cfg)])
+    assert not (tmp_path / "train").exists()
+
+
+def _module_level(body):
+    """The statements a module runs when it is imported: its body, and
+    the bodies of its top-level if, try and with blocks, but not those of
+    its functions and classes."""
+    for node in body:
+        yield node
+        if isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody"):
+                yield from _module_level(getattr(node, field, []))
+            for h in getattr(node, "handlers", []):
+                yield from _module_level(h.body)
+
+
+def test_port_imports_no_pil_at_module_level():
+    """The card's installation has no Pillow: the port's resizes are its
+    own (pipeline/resize.py), and only the best-effort sample drawing of
+    the eval imports Pillow, inside the function that draws."""
+    bad, inside = [], []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        top = set(map(id, _module_level(tree.body)))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            pil = [n for n in names if n == "PIL" or n.startswith("PIL.")]
+            (bad if id(node) in top else inside).extend(
+                f"{path}:{node.lineno}" for _ in pil)
+    assert not bad, bad
+    assert [p.split("roadsurf_tpu_torch/")[-1].split(":")[0]
+            for p in inside] == ["engine/coco_eval.py"]
 
 
 def test_port_imports_no_pandas():
