@@ -39,10 +39,12 @@ exits non-zero:
    mode. K5 (``roi_align_backward``): the poolers' gradient at the
    training shapes (``K5_CASES``: the YAML's box R=1016 P=7 and mask M=128
    P=14 at 800 px, adaptive; the fast profile's at 256 px, s=2), its f32
-   accumulators against the plain gradient at B=2 (and its bf16 output
+   gradients against the plain gradient at B=2 (and its bf16 output
    within one bf16 rounding), on random and on edge batches (boxes on
-   every level, zero GT boxes, boxes on and across the borders); timed at
-   B=8 beside its plain time and its byte bound.
+   every level, zero GT boxes, boxes on and across the borders), each
+   launched twice and held bitwise equal (one write a tile, no atomics);
+   timed at B=8 beside its plain time and its byte bound, with the
+   histogram of kept boxes per tile and level (``_k5_tiles``).
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
    64 random 256 px tiles, the last one short; K1 must have been launched
@@ -725,7 +727,7 @@ K5_CASES = (("box", 800, (200, 100, 50, 25), 1016, 7, 0, True),
             ("mask_s2", 256, (64, 32, 16), 128, 14, 2, False))
 # the plain gradient's batch (its per-image (R, P, W, C) intermediate is
 # ~1.5 GB at P2 of 800 px), and K5's tolerance against it on the f32
-# accumulators: the same weights, sums in another order
+# gradients: the same weights, sums in another order
 K5_CHECK_B = 2
 K5_REL, K5_ABS = 1e-5, 1e-6
 
@@ -772,8 +774,7 @@ def _k5_work(dout, shapes, boxes, lvl, P: int, s: int) -> tuple:
     each level's bf16 gradient written once; FLOPs of the separable form,
     per box and channel 2·P per non-zero x-weight (the x-contraction) and 2
     per non-zero y-weight and column of the box's region (the
-    y-contraction). Also the bytes of the f32 accumulator this design
-    keeps (zeroed, then read by the cast)."""
+    y-contraction)."""
     from roadsurf_tpu_torch.ops.roi_align_kernel import axis_weights
 
     grads = sum(int(np.prod(sh)) for sh in shapes)
@@ -790,13 +791,60 @@ def _k5_work(dout, shapes, boxes, lvl, P: int, s: int) -> tuple:
             ny = (wy != 0).sum(dim=(2, 3)).float()               # Σ_p
             cols = (wx != 0).any(dim=2).sum(-1).float() * on    # region
             flops += float((nx * P + ny * cols).sum()) * 2 * C
-    return nbytes, flops, grads * 8
+    return nbytes, flops
+
+
+# edges of the histogram of kept boxes a tile
+K5_HIST_EDGES = (0, 1, 5, 17, 65, 257)
+
+
+def _k5_tiles(shapes, boxes, lvl, P: int) -> list:
+    """K5's culling replayed (float32, the kernel's tap spans and tiles):
+    per level the count of kept boxes of each (image, tile), summarised as
+    the tiles, the mean and largest count, and a histogram over
+    ``K5_HIST_EDGES`` (the last bin open)."""
+    from roadsurf_tpu_torch.ops.roi_align_backward_kernel import TILE_H, \
+        tile_w
+
+    TW = tile_w(P)
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    res = []
+    for l, sh in enumerate(shapes):
+        H, W = sh[1], sh[2]
+        inv = torch.tensor(1.0, device=boxes.device) / 2 ** (2 + l)
+
+        def span(lo, hi, dim):
+            binsz = (hi - lo) / P
+            a, b = lo, lo + P * binsz   # bin_start(lo, bin, 0), (.., P)
+            s0 = torch.floor(torch.minimum(a, b) * inv - 0.5) - 1
+            s1 = torch.floor(torch.maximum(a, b) * inv - 0.5) + 2
+            return s0.clamp(0, dim - 1), s1.clamp(0, dim - 1)
+
+        sx0, sx1 = span(x0, x1, W)
+        sy0, sy1 = span(y0, y1, H)
+        on = lvl.clamp(0, len(shapes) - 1) == l
+        tx = torch.arange(0, W, TW, device=boxes.device)
+        ty = torch.arange(0, H, TILE_H, device=boxes.device)
+        kx = (sx0[..., None] < tx + TW) & (sx1[..., None] >= tx)  # B R X
+        ky = (sy0[..., None] < ty + TILE_H) & (sy1[..., None] >= ty)
+        counts = torch.einsum("brx,bry->byx", (kx & on[..., None]).float(),
+                              ky.float()).flatten()
+        edges = list(K5_HIST_EDGES) + [float("inf")]
+        res.append({"level": l, "tiles": counts.numel(),
+                    "tile": [TILE_H, TW],
+                    "mean": float(counts.mean()),
+                    "max": int(counts.max()),
+                    "hist": [int(((counts >= a) & (counts < b)).sum())
+                             for a, b in zip(edges, edges[1:])]})
+    return res
 
 
 def phase_kernels_k5() -> list:
-    """K5 against its plain version, f32 accumulators compared, at B=2 (and
-    its bf16 output within one bf16 rounding); then K5 timed at the
-    training batch, B=8, beside its plain time and its bounds."""
+    """K5 against its plain version, f32 gradients compared, at B=2 (and
+    its bf16 gradients within one bf16 rounding), each launched twice and
+    required bitwise equal; then K5 timed at the training batch, B=8,
+    beside its plain time and its bound, with the histogram of kept boxes
+    a tile."""
     from roadsurf_tpu_torch.ops.roi_align import level_assignment, \
         reachable_levels
     from roadsurf_tpu_torch.ops.roi_align_backward_kernel import \
@@ -816,6 +864,9 @@ def phase_kernels_k5() -> list:
             got = roi_align_backward(dout, shapes, boxes, lvl, P, s,
                                      dtype=torch.float32)
             got16 = roi_align_backward(dout, shapes, boxes, lvl, P, s)
+            again = roi_align_backward(dout, shapes, boxes, lvl, P, s,
+                                       dtype=torch.float32)
+            again16 = roi_align_backward(dout, shapes, boxes, lvl, P, s)
             ref = roi_align_backward_ref(dout, shapes, boxes, lvl, P, s)
             torch.cuda.synchronize()
             err, err16, bad, bad16, top = 0.0, 0.0, 0, 0, 0.0
@@ -837,8 +888,11 @@ def phase_kernels_k5() -> list:
                     "out_of_tolerance": bad, "max_abs_err_bf16": err16,
                     "out_of_tolerance_bf16": bad16,
                     "finite": all(bool(torch.isfinite(k).all())
-                                  for k in got)}
-            del got, got16, ref
+                                  for k in got),
+                    "bitwise_repeatable": all(
+                        torch.equal(a, b) for a, b in zip(got + got16,
+                                                          again + again16))}
+            del got, got16, again, again16, ref
             if not edge:
                 # timed at the training batch
                 shapes8, dout8, boxes8 = _k5_inputs(g, TB, side, levels, R,
@@ -846,8 +900,7 @@ def phase_kernels_k5() -> list:
                 shapes8 = shapes8[:n_lev]
                 lvl8 = level_assignment(boxes8, 224, 4, 2,
                                         2 + n_lev - 1).contiguous()
-                nbytes, flops, acc_bytes = _k5_work(dout8, shapes8, boxes8,
-                                                    lvl8, P, s)
+                nbytes, flops = _k5_work(dout8, shapes8, boxes8, lvl8, P, s)
                 case.update(
                     B=TB,
                     ms=_time_ms(lambda: roi_align_backward(
@@ -855,18 +908,17 @@ def phase_kernels_k5() -> list:
                     plain_ms=_time_ms(lambda: roi_align_backward_ref(
                         dout8, shapes8, boxes8, lvl8, P, s), 1, warmup=1),
                     library_ms=None,
-                    accumulator_bytes=acc_bytes,
-                    bound_ms_with_accumulator=(nbytes + acc_bytes)
-                    / HBM_BYTES_PER_S * 1e3,
+                    boxes_a_tile=_k5_tiles(shapes8, boxes8, lvl8, P),
                     **_bound(nbytes, flops))
                 del dout8
             torch.cuda.empty_cache()
             _emit({"phase": "kernels", "kernel": "roi_align_backward",
                    **case})
             _require(case["finite"] and case["out_of_tolerance"] == 0
-                     and case["out_of_tolerance_bf16"] == 0,
-                     f"roi_align_backward disagrees with its plain version:"
-                     f" {case}")
+                     and case["out_of_tolerance_bf16"] == 0
+                     and case["bitwise_repeatable"],
+                     f"roi_align_backward disagrees with its plain version"
+                     f" or with itself: {case}")
             cases.append(case)
     _emit({"phase": "kernels", "kernel": "roi_align_backward",
            "case": "autograd", **_pooler_autograd_check(g)})
@@ -1605,9 +1657,8 @@ def _category(name: str) -> str:
     n = name.lower()
     # K1 and K2 run one device code (roi_align_staged_kernel): on the fast
     # paths "roi_align" is K1, on the parity and training paths K2; K5 is
-    # its scatter and its cast to bf16
-    for cat, keys in (("roi_align_backward", ("roi_align_backward",
-                                              "cast_bf16")),
+    # roi_align_backward_tile_kernel
+    for cat, keys in (("roi_align_backward", ("roi_align_backward",)),
                       ("roi_align", ("roi_align",)),
                       ("nms", ("nms",)),
                       ("conv", ("conv", "xmma", "implicit", "cudnn",
@@ -1669,8 +1720,7 @@ def _record(name, source, replaces, launches, cases, err_key, per_key):
             # the device time of its kernels and of torch._int_mm's
             **{k: sum(c[k] for c in timed) for k in (
                 "box_bytes", "box_bytes_ms", "pair_ms", "sweep_ms",
-                "device_ms", "transpose_ms", "library_device_ms",
-                "bound_ms_with_accumulator")
+                "device_ms", "transpose_ms", "library_device_ms")
                if timed and k in timed[0]},
             "per_call": {c[per_key]: {k: c.get(k) for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,13 +1,17 @@
 // Bulk copies from global to shared memory (cp.async.bulk, the non-tensor
-// TMA) whose bytes complete on a shared-memory mbarrier, and the mbarrier
-// operations, for the kernels of roi_align_staged.cuh, nms.cu and
-// int8_gemm.cu. A barrier of a copy counts one arrival (the thread that
-// issues the copies) and the bytes it expects; a consumer waits on the
+// TMA, and its 2-D tensor form) whose bytes complete on a shared-memory
+// mbarrier, the mbarrier operations, and the host's encoder of tensor maps,
+// for the kernels of roi_align_staged.cuh, nms.cu, int8_gemm.cu and
+// roi_align_backward.cu. A barrier of a copy counts one arrival (the thread
+// that issues the copies) and the bytes it expects; a consumer waits on the
 // barrier's phase parity.
 
 #pragma once
 
 #include <cstdint>
+
+#include <cuda.h>
+#include <cuda_runtime.h>
 
 namespace bulk {
 
@@ -71,6 +75,47 @@ __device__ __forceinline__ void copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// 2-D tensor copy of the box at (c0 along the inner dimension, c1) of `map`
+// into shared memory (128-byte aligned); the box's bytes, those the tensor
+// map fills with zeros past its edges included, complete on `bar`.
+__device__ __forceinline__ void tensor_copy_2d(void* dst,
+                                               const CUtensorMap* map,
+                                               int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda); nullptr when the driver lacks it.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace bulk

@@ -78,18 +78,6 @@ struct Tile {
   static_assert(kConsumers * 64 * kRowBytes <= kRingBytes, "epilogue");
 };
 
-// 2-D tensor copy of the box at (c0 along the inner dimension, c1) into
-// shared memory; its bytes complete on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -227,8 +215,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (kt >= S) mbar_wait(&empty[s], (kt / S - 1) & 1);
         unsigned char* st = ring + s * T::kStageBytes;
         mbar_expect(&full[s], T::kStageBytes);
-        tma_load(st, &map_a, kt * kBK, m0, &full[s]);
-        tma_load(st + T::kABytes, &map_w, kt * kBK, n0, &full[s]);
+        bulk::tensor_copy_2d(st, &map_a, kt * kBK, m0, &full[s]);
+        bulk::tensor_copy_2d(st + T::kABytes, &map_w, kt * kBK, n0,
+                             &full[s]);
       }
     }
     return;
@@ -373,38 +362,11 @@ bool needs_pad(const void* a, int K) {
   return K % kPadK != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0;
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The tensor map of a (rows, cols) int8 row-major matrix with row stride
 // `ld` bytes, read in boxes of box_rows x 128 bytes, 128-byte swizzle.
 bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int ld,
               int box_rows) {
-  const EncodeTiled fn = encode_tiled();
+  const bulk::EncodeTiled fn = bulk::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};

@@ -14,16 +14,20 @@ channel, into the level's gradient, in both sampling modes (a fixed s×s
 grid, and the adaptive n = ceil(bin cells)); the weights come from the
 forward's device code (``csrc/roi_align_staged.cuh``), bit for bit.
 
-What bounds it on an H100: its scatter. The first design is the simple
-one (the source's note has the details): a block per box, threads over the
-channels, the box's weights in shared memory, one f32 ``atomicAdd`` per
-cell of the box's region and channel into a zeroed float32 accumulator,
-then a cast to bf16. Atomics add in an order that varies from run to run,
-so the last bits of the float32 sums do too; that is not a fault. Its
-byte bound counts dP read once and the levels' gradients written once
-(``chip_smoke.py`` computes it, and beside it the bound with the
-accumulator's zeroing and read); ``csrc/roi_align_backward.cu`` has the
-measured times.
+Its bound on an H100 is bytes, d pooled read once and the levels'
+gradients written once (``chip_smoke.py`` computes it); in practice the
+weights' evaluations and the sums' latency set its time. The design
+is output-stationary (the source's note has the details): a block owns a
+tile of ``TILE_H`` rows, ``tile_w(P)`` columns and ``chunk_c(P)``
+channels of one level of one image, culls the image's boxes to those
+whose region overlaps the tile; two producer warps take each kept box's
+d pooled slice through TMA and evaluate its weights over the tile only,
+eight consumer warps sum the boxes' contributions in f32 registers in
+ascending box order, and the block writes the tile once, in bf16 or
+float32. No memset, no accumulator, no atomics: the result is bitwise the
+same from run to run. The tile's sizes are read from the source
+(``KERNEL``), so that the CPU tests' mirror of the kernel's tiles and sums
+uses the kernel's own.
 
 On CPU tensors :func:`roi_align_backward` runs the plain version, the
 explicit transposed contractions of the forward's plain version
@@ -35,12 +39,33 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 
 from . import cuda_build
-from .roi_align_kernel import KERNEL, MAX_C, MAX_LEVELS, MAX_OUT, \
-    MAX_SAMPLING, axis_weights
+from .roi_align_kernel import MAX_C, MAX_LEVELS, MAX_OUT, MAX_SAMPLING, \
+    axis_weights
+
+# the tile and ring constants of csrc/roi_align_backward.cu, read from its
+# source
+KERNEL = {name: int(v) for name, v in re.findall(
+    r"^constexpr int (k\w+) = (\d+);",
+    (cuda_build.CSRC / "roi_align_backward.cu").read_text(), re.M)}
+TILE_H = KERNEL["kTileH"]        # rows of a block's output tile
+
+
+def chunk_c(out_size: int) -> int:
+    """Channels of a block's output tile: all 256 where a box's slice of
+    them fits a ring slot (P <= 8), else 64."""
+    return KERNEL["kWideC"] if out_size <= KERNEL["kWideMaxP"] \
+        else KERNEL["kNarrowC"]
+
+
+def tile_w(out_size: int) -> int:
+    """Columns of a block's output tile: its consumer threads over
+    ``chunk_c / 8`` threads a column."""
+    return 32 * KERNEL["kConsumerWarps"] // (chunk_c(out_size) // 8)
 
 
 def _meta_levels(shapes):
@@ -72,17 +97,37 @@ def roi_align_backward_ref(dout, shapes, boxes, lvl, out_size: int,
 def _library() -> ctypes.CDLL:
     lib = cuda_build.library("roi_align_backward")
     lib.roi_align_backward_run.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * (2 * MAX_LEVELS + 2)
+        [ctypes.c_void_p] + [ctypes.c_int] * (2 * MAX_LEVELS + 3)
         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.roi_align_backward_run.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(out_size: int, side: int) -> int:
+def part_bins(out_size: int) -> int:
+    """Bin rows p of a box's d pooled slice that one tensor copy holds:
+    whole bin rows of at most TMA's 256-row box side and of a ring slot's
+    bytes."""
+    k = KERNEL
+    rows = min(k["kMaxCopyRows"], k["kMaxSlotBytes"] // (chunk_c(out_size)
+                                                         * 2))
+    return max(1, min(out_size, rows // out_size))
+
+
+def smem_bytes(out_size: int) -> int:
     """Shared memory a block takes (``roi_align_backward_run`` computes the
-    same sum): both axes' weight tables over the longest level side, and
-    each bin's non-zero range."""
-    return 4 * 2 * out_size * side + 4 * 4 * out_size
+    same sum): the 128-byte alignment; per ring slot the d pooled slice,
+    its two barriers and its weight tables over the tile (each bin's rows
+    and columns, each bin's range of rows, the rows' range of bins, each
+    column's range of bins); the culled box list and the warps' counts. It
+    does not depend on the levels' sides."""
+    k, P = KERNEL, out_size
+    slot = part_bins(P) * P * chunk_c(P) * 2
+    tw = tile_w(P)
+    table = (P * (TILE_H + tw + 2) + 2 + 2 * tw + 3) // 4 * 4
+    threads = k["kBwdThreads"]
+    counts = -(-k["kMaxList"] // threads) * (threads // 32)
+    return (128 + k["kRing"] * (slot + 16 + 4 * table)
+            + 4 * (k["kMaxList"] + counts))
 
 
 def _check(dout, shapes, boxes, lvl, out_size, sampling, dtype):
@@ -116,10 +161,9 @@ def _check(dout, shapes, boxes, lvl, out_size, sampling, dtype):
                          "device")
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"level gradients in bf16 or float32, not {dtype}")
-    side = max(max(s[1], s[2]) for s in shapes)
-    if smem_bytes(out_size, side) > KERNEL["kMaxSmem"]:
-        raise ValueError(f"levels of side {side} at out_size={out_size} "
-                         f"exceed a block's shared memory")
+    if B * R * out_size * out_size >= 2 ** 31:
+        raise ValueError("B·R·P·P rows of dout must stay below 2^31 (the "
+                         "tensor copies' row coordinate)")
 
 
 def roi_align_backward(dout, shapes, boxes, lvl, out_size: int,
@@ -128,8 +172,8 @@ def roi_align_backward(dout, shapes, boxes, lvl, out_size: int,
     """d levels in ``dtype`` ((B, H_l, W_l, C) each, for levels of
     ``shapes``) from d pooled ``dout`` (B, R, P, P, C); boxes (B, R, 4)
     f32 XYXY, lvl (B, R) int32. Launches the kernel for CUDA tensors (bf16
-    ``dout``; ``dtype`` float32 returns the kernel's accumulators, bf16
-    their cast) and runs the plain version for CPU tensors."""
+    ``dout``; it writes the gradients in ``dtype``, bf16 or float32) and
+    runs the plain version for CPU tensors."""
     shapes = [tuple(int(d) for d in s) for s in shapes]
     if boxes.device.type == "cpu":
         return [g.to(dtype) for g in roi_align_backward_ref(
@@ -140,23 +184,19 @@ def roi_align_backward(dout, shapes, boxes, lvl, out_size: int,
     _check(dout, shapes, boxes, lvl, out_size, sampling, dtype)
     sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
     dev = boxes.device
-    acc = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    out = None if dtype == torch.float32 else torch.empty(
-        sum(sizes), dtype=dtype, device=dev)
+    out = torch.empty(sum(sizes), dtype=dtype, device=dev)
     B, R = boxes.shape[:2]
     dims = []
     for li in range(MAX_LEVELS):
         dims += list(shapes[li][1:3]) if li < len(shapes) else [0, 0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _library().roi_align_backward_run(
-        acc.data_ptr(), None if out is None else out.data_ptr(), *dims,
-        len(shapes), min_level, boxes.data_ptr(), lvl.data_ptr(),
-        dout.data_ptr(), B, R, shapes[0][-1], out_size, sampling, dev.index,
-        stream)
+        out.data_ptr(), int(dtype == torch.float32), *dims, len(shapes),
+        min_level, boxes.data_ptr(), lvl.data_ptr(), dout.data_ptr(), B, R,
+        shapes[0][-1], out_size, sampling, dev.index, stream)
     cuda_build.check("roi_align_backward", rc, "roi_align_backward")
     roi_align_backward.launches += 1
-    flat = acc if out is None else out
-    return [part.view(s) for part, s in zip(flat.split(sizes), shapes)]
+    return [part.view(s) for part, s in zip(out.split(sizes), shapes)]
 
 
 roi_align_backward.launches = 0

@@ -1,15 +1,15 @@
 """Time one of the port's kernels in one or more checkouts of the repo on
 one card, so that two versions of a kernel are compared within one call.
 
-    python3 roadsurf_tpu_torch/tools/time_kernels.py --kernel {k1,k2,k4} \\
-        [--k1-shapes] [--rounds N] TREE...
+    python3 roadsurf_tpu_torch/tools/time_kernels.py \\
+        --kernel {k1,k2,k4,k5} [--k1-shapes] [--rounds N] TREE...
 
 The inputs are those of this checkout's ``chip_smoke.py`` (its
-``_pool_inputs``, ``_parity_pool_inputs``, ``_quantized`` and
-``_gemm_inputs``), the same for every tree; each tree's own kernel
-wrapper and plain version are called. Each tree runs in a process of its
-own (the trees share the package's name), in rounds that alternate them
-(A B A B ...).
+``_pool_inputs``, ``_parity_pool_inputs``, ``_quantized``,
+``_gemm_inputs`` and ``_k5_inputs``), the same for every tree; each
+tree's own kernel wrapper and plain version are called. Each tree runs in
+a process of its own (the trees share the package's name), in rounds that
+alternate them (A B A B ...).
 
 - ``k1`` (``roi_align_fused``): the fast profile's poolers (B=64, P2..P4
   of a 256 px tile, C=256, s=2; box R=32 P=7, mask R=8 P=14) in both modes,
@@ -26,12 +26,20 @@ own (the trees share the package's name), in rounds that alternate them
   its kernels (torch.profiler; at the small shapes the event time is the
   host's launch path); untimed, the ragged shapes of
   ``chip_smoke.GEMM_EDGES``.
+- ``k5`` (``roi_align_backward``): the poolers' gradient at
+  ``chip_smoke.K5_CASES`` (the YAML's box R=1016 P=7 and mask M=128 P=14
+  at 800 px, adaptive; the fast profile's at 256 px, s=2): timed at the
+  training batch B=8 with bf16 gradients, as a training step calls it;
+  untimed, float32 gradients at B=2 (random and edge boxes) against the
+  tree's plain version within ``chip_smoke.K5_REL``·max|plain| +
+  ``K5_ABS``.
 
 Prints nvidia-smi's name and power limit, then JSON lines: per tree its
 build (ptxas's registers and spills), per (tree, round, case, mode) the
 mean time of 20 calls (CUDA events, after 2) and the agreement with the
 plain version (poolers: ``chip_smoke._agreement``, on the first two images
-for K2's parity cases; K4: mismatches, bit for bit), and at the end one
+for K2's parity cases; K4: mismatches, bit for bit; K5: the values beyond
+its tolerance), and at the end one
 ``summary`` line per (tree, case, mode): the times of every round (K4: the
 device times too).
 Exits non-zero without a card or when a call disagrees.
@@ -130,6 +138,45 @@ def _gemms(cs, emit):
     return ok
 
 
+def _k5(tree_mod, cs, emit):
+    import torch
+
+    from roadsurf_tpu_torch.ops.roi_align import level_assignment, \
+        reachable_levels
+
+    kernel, plain = tree_mod
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ok = True
+    for name, side, levels, R, P, s, _ in cs.K5_CASES:
+        for Bn, edge in ((cs.K5_CHECK_B, False), (cs.K5_CHECK_B, True),
+                         (cs.TB, False)):
+            shapes, dout, boxes = cs._k5_inputs(g, Bn, side, levels, R, P,
+                                                edge)
+            n_lev = reachable_levels([torch.empty(sh, device="meta")
+                                      for sh in shapes])
+            shapes = shapes[:n_lev]
+            lvl = level_assignment(boxes, 224, 4, 2, 1 + n_lev).contiguous()
+            if Bn == cs.TB:
+                ms = cs._time_ms(lambda: kernel(dout, shapes, boxes, lvl, P,
+                                                s), 20)
+                emit({"case": name, "mode": "bf16", "B": Bn, "ms": ms})
+                continue
+            got = kernel(dout, shapes, boxes, lvl, P, s, dtype=torch.float32)
+            ref = plain(dout, shapes, boxes, lvl, P, s)
+            bad, err = 0, 0.0
+            for k, r in zip(got, ref):
+                e = (k - r).abs()
+                bad += int((e > cs.K5_REL * float(r.abs().max())
+                            + cs.K5_ABS).sum())
+                err = max(err, float(e.max()))
+            ok &= bad == 0
+            emit({"case": name + ("_edge" if edge else ""), "mode": "f32",
+                  "B": Bn, "max_abs_err": err, "out_of_tolerance": bad})
+            del got, ref
+        torch.cuda.empty_cache()
+    return ok
+
+
 def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
     cs = _inputs_module()
     sys.path.insert(0, tree)
@@ -137,7 +184,7 @@ def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
     from roadsurf_tpu_torch.ops import cuda_build
 
     source = {"k1": "roi_align", "k2": "roi_align_blocked",
-              "k4": "int8_gemm"}[kernel_name]
+              "k4": "int8_gemm", "k5": "roi_align_backward"}[kernel_name]
     if rnd == 0:
         r = cuda_build.build(source)
         print(json.dumps({"tree": tree, "build_s": r["seconds"], "ptxas": [
@@ -150,6 +197,10 @@ def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
 
     if kernel_name == "k4":
         ok = _gemms(cs, emit)
+    elif kernel_name == "k5":
+        from roadsurf_tpu_torch.ops.roi_align_backward_kernel import \
+            roi_align_backward, roi_align_backward_ref
+        ok = _k5((roi_align_backward, roi_align_backward_ref), cs, emit)
     else:
         if kernel_name == "k1":
             from roadsurf_tpu_torch.ops.roi_align_kernel import \
@@ -164,7 +215,8 @@ def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("k1", "k2", "k4"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k4", "k5"),
+                    required=True)
     ap.add_argument("--k1-shapes", action="store_true",
                     help="k2 only: run K2's kernel at K1's cases")
     ap.add_argument("--rounds", type=int, default=2)
