@@ -100,6 +100,35 @@ exits non-zero:
    finite. Its line holds s/step, images/s, the peak of allocated memory,
    the eval's seconds, a warm step at every size and one step's device
    split (torch.profiler).
+12. ``dp_train``: the data-parallel training step (``parallel/``,
+   ``engine/train.py`` with a group): two gloo ranks sharing cuda:0
+   (NCCL takes one rank a device; the card computes, gloo carries the
+   collectives) against one rank, the YAML's model at full width in
+   bf16 (K2 and K5 take no float32 levels) with TF32 off, fixed 320 px,
+   a global batch of 4, 2 steps.
+   Checks: each step's losses within 1e-4 + 1e-3·|ref|, the ranks'
+   parameters bitwise equal, a rank's step FLOPs at most 1.35/2 of the
+   one-rank step's, every rank's K2 2, K5 2 and K3 1 launches a step.
+13. ``dp_train_run``: ``pipeline.training.run`` data-parallel over every
+   card with NCCL (one rank a card) on the ``train_model.py`` block over
+   train_path's synthetic tileset, bf16, multiscale 640..800, B=8, 3
+   steps: finite losses, each rank's launches, one checkpoint that the
+   engine loads and answers from; host s/step beside train_path's, and
+   the loader's seconds a global batch.
+14. ``dp_infer``: the sharded ``TileInferenceEngine`` (every card, or two
+   shards on cuda:0 when there is one), the parity profile in bf16,
+   B=16: its outputs equal bit for bit to a one-device engine's at the
+   shard's batch size on the same rows, K2 and K3 twice a shard and
+   batch; beside it, the differences of both from the one-device engine
+   at B=16 (bf16, random weights: near-equal scores reorder), and
+   tiles/s of the three.
+15. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
+   image (10000² × 4 uint16, EPSG:2056, a nodata border): the host's
+   inverse map, the gather (equal to numpy's of the same indices),
+   ``band_stats`` (min/max equal, mean/std rtol 1e-5 of float64 numpy),
+   ``scale_to_byte`` (equal to its CPU version), each timed; then
+   ``Tif2Cog.run`` over a ``LocalStore`` on three 2000² images: steps
+   1-3, a rerun that skips, COGs in EPSG:3857 with 8 overviews.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -203,35 +232,20 @@ def _bound(nbytes: float, flops: float, peak: float = F32_FLOPS_PER_S
             "ops_ms": t_ops, "bytes_ms": t_bytes}
 
 
-def _counters() -> dict:
-    """{count name: (wrapper, attribute)}: each wrapper counts its launches,
-    the poolers per mode."""
-    from roadsurf_tpu_torch.ops.int8_gemm import int8_gemm
-    from roadsurf_tpu_torch.ops.nms_kernel import nms_keep_mask
-    from roadsurf_tpu_torch.ops.roi_align_backward_kernel import \
-        roi_align_backward
-    from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import \
-        roi_align_fused_blocked
-    from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused
-
-    return {"roi_align": (roi_align_fused, "launches"),
-            "roi_align_int8": (roi_align_fused, "launches_int8"),
-            "roi_align_blocked": (roi_align_fused_blocked, "launches"),
-            "roi_align_blocked_int8": (roi_align_fused_blocked,
-                                       "launches_int8"),
-            "nms": (nms_keep_mask, "launches"),
-            "int8_gemm": (int8_gemm, "launches"),
-            "roi_align_backward": (roi_align_backward, "launches")}
-
-
 def _reset_counts():
-    for fn, attr in _counters().values():
-        setattr(fn, attr, 0)
+    from roadsurf_tpu_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def _read_counts() -> dict:
-    return {name: getattr(fn, attr)
-            for name, (fn, attr) in _counters().items()}
+    from roadsurf_tpu_torch.ops import launch_counts
+
+    return launch_counts()
+
+
+def _sum_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -1350,8 +1364,8 @@ def phase_train_path() -> dict:
     steps, evals = [], []
     step_fn, eval_fn = training.train_step, training.evaluate_dataset
 
-    def timed_step(cfg_, size):
-        fn = step_fn(cfg_, size)
+    def timed_step(cfg_, size, group=None):
+        fn = step_fn(cfg_, size, group)
 
         def run(state, batch):
             torch.cuda.synchronize()
@@ -1468,6 +1482,9 @@ def phase_train_path() -> dict:
                        "tiles": {"trn": TRAIN_TILES, "val": VAL_TILES}},
            "batch": TB, "run_s": run_s, "steps": steps,
            "s_per_step": s_step, "images_per_s": TB / s_step,
+           # the host clock's step time from metrics.jsonl (imgs_per_sec
+           # a step, log_every 1), steps 2..6: what dp_train_run reports
+           "host_s_per_step": _host_s_per_step(losses, TB),
            "warm_ms_by_size": warm,
            "warm_s_per_step": float(np.mean(list(warm.values()))) / 1e3,
            "warm_images_per_s": TB / (float(np.mean(list(warm.values())))
@@ -1478,6 +1495,462 @@ def phase_train_path() -> dict:
                                       "ap": ap},
            "checkpoint": os.path.basename(ckpt),
            "profile_step": prof}
+    _emit(res)
+    return res
+
+
+def _host_s_per_step(lines: list, batch: int) -> float:
+    """Mean seconds a step over steps 2.. of metrics.jsonl lines written
+    with log_every 1 (each line's imgs_per_sec is batch / its step's host
+    time)."""
+    return float(np.mean([batch / ln["imgs_per_sec"] for ln in lines[1:]]))
+
+
+# ---------------------------------------------------------------------------
+# data parallelism
+
+DP_SIDE, DP_B, DP_STEPS = 320, 4, 2       # dp_train (a): fixed 320 px, B=4
+DP_RUN_STEPS = 3                          # dp_train (b)
+
+
+def _dp_batch(B: int, S: int, seed: int = 5) -> dict:
+    """A global training batch of B synthetic S px tiles: 1 to 6 road-like
+    polygons of both classes painted over noise, their boxes and
+    full-tile masks (16 rows an image)."""
+    from roadsurf_tpu_torch.geom import _native
+
+    rng = np.random.default_rng(seed)
+    G = 16
+    out = {"image": rng.integers(60, 120, (B, S, S, 3)).astype(np.uint8),
+           "gt_boxes": np.zeros((B, G, 4), np.float32),
+           "gt_classes": np.zeros((B, G), np.int32),
+           "gt_valid": np.zeros((B, G), bool),
+           "gt_masks": np.zeros((B, G, S, S), np.uint8)}
+    for b in range(B):
+        for g, (cls, quad) in enumerate(_road_polygons(
+                rng, int(rng.integers(1, 7)))):
+            quad = quad * (S / TILE)
+            m = _native.rasterize(_native.pack([[np.concatenate(
+                [quad, quad[:1]])]]), 0.0, 1.0, 0.0, 1.0, S, S)
+            out["image"][b][m > 0] = (200, 200, 190) if cls == 1 \
+                else (150, 110, 60)
+            out["gt_boxes"][b, g] = (*quad.min(0), *quad.max(0))
+            out["gt_classes"][b, g] = cls - 1
+            out["gt_valid"][b, g] = True
+            out["gt_masks"][b, g] = m > 0
+    return out
+
+
+def phase_dp_train() -> dict:
+    """dp_train (a): the port's data-parallel training step, two gloo ranks
+    on cuda:0 (NCCL refuses two ranks on one device; gloo carries the
+    collectives of the CUDA tensors, the card does the compute) against
+    one rank in this process: the YAML's model at full width in bf16 (K2
+    and K5 take bf16 levels; no float32 mode), TF32 off, fixed DP_SIDE
+    px, a global batch of DP_B, DP_STEPS steps. Checks: every step's
+    losses within 1e-4 + 1e-3·|ref|; the two ranks' parameters bitwise
+    equal after the steps; a rank's step FLOPs (FlopCounterMode) at most
+    1.35/2 of the one-rank step's; each rank's launches
+    DP_STEPS·STEP_LAUNCHES."""
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+    from roadsurf_tpu_torch.parallel.dryrun import LOSS_KEYS, compare_ranks
+
+    cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
+    case = {"cfg": cfg, "image_size": DP_SIDE,
+            "batch": _dp_batch(DP_B, DP_SIDE), "init_seed": 7, "seed": 7,
+            "steps": DP_STEPS, "count_flops": True}
+    _reset_counts()
+    t0 = time.perf_counter()
+    (one,), _, (ranks_res,), rank_counts = compare_ranks(
+        [case], 2, device="cuda", backend="gloo")
+    wall = time.perf_counter() - t0
+    parent = _read_counts()
+    want = {k: DP_STEPS * STEP_LAUNCHES.get(k, 0) for k in parent}
+    for who, counts in [("one rank", parent)] + [
+            (f"rank {r}", c) for r, c in enumerate(rank_counts)]:
+        _require(counts == want, f"dp_train {who}: launches {counts}, "
+                                 f"expected {want}")
+    # each step's worst loss difference in units of its tolerance
+    worst = [max(abs(ranks_res[0]["metrics"][i][k] - one["metrics"][i][k])
+                 / (1e-4 + 1e-3 * abs(one["metrics"][i][k]))
+                 for k in LOSS_KEYS) for i in range(DP_STEPS)]
+    _require(max(worst) <= 1.0, f"dp_train: losses beyond 1e-4 + 1e-3·|ref| "
+                                f"(worst/tolerance by step {worst}): "
+                                f"{one['metrics']} vs {ranks_res[0]['metrics']}")
+    _require(ranks_res[0]["params_sha256"] == ranks_res[1]["params_sha256"],
+             "dp_train: the ranks' parameters differ")
+    ratio = ranks_res[0]["flops"][0] / one["flops"][0]
+    _require(ratio <= 1.35 / 2, f"dp_train: FLOPs ratio {ratio}")
+    res = {"phase": "dp_train",
+           "what": "2 gloo ranks sharing cuda:0 (NCCL takes one rank a "
+                   "device) vs 1 rank; the card computes, gloo carries "
+                   "the collectives",
+           "profile": f"from_detectron2_yaml({YAML!r}), bf16, TF32 off",
+           "image_size": DP_SIDE, "global_batch": DP_B, "steps": DP_STEPS,
+           "loss_diff_over_tolerance": worst,
+           "one_rank_losses": one["metrics"],
+           "two_rank_losses": ranks_res[0]["metrics"],
+           "params_bitwise_equal": True,
+           "flops_one_rank": one["flops"][0],
+           "flops_per_rank": ranks_res[0]["flops"][0],
+           "per_device_flops_ratio": ratio,
+           "step_s_one_rank": one["seconds"],
+           "step_s_rank0": ranks_res[0]["seconds"],
+           "wall_s": wall,
+           "launches_per_rank": rank_counts,
+           "launches": _sum_counts(parent, *rank_counts)}
+    _emit(res)
+    return res
+
+
+def phase_dp_train_run(train_res: dict) -> dict:
+    """dp_train (b): ``pipeline.training.run`` on the ``train_model.py``
+    block over train_path's synthetic tileset, data-parallel over every
+    visible card with NCCL (one rank a card: a real init, broadcast and
+    all-reduce), the YAML's model in bf16, multiscale 640..800, B=8,
+    DP_RUN_STEPS steps. Checks: finite losses, one metrics.jsonl line a
+    step; each rank's launches DP_RUN_STEPS·STEP_LAUNCHES; one checkpoint,
+    which ``TileInferenceEngine`` loads and answers a batch with. Numbers:
+    host s/step and images/s beside train_path's (same clock), and the
+    loader's seconds a global batch, which every rank pays."""
+    import tempfile
+
+    from roadsurf_tpu_torch.engine import TileInferenceEngine
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+    from roadsurf_tpu_torch.pipeline import training
+    from roadsurf_tpu_torch.utils.weights import from_jax_params, \
+        load_params
+
+    n = torch.cuda.device_count()
+    stats = {}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as wd:
+        paths = _write_train_dataset(wd)
+        block = {"working_directory": wd,
+                 "detectron2_config_file": os.path.join(ROOT, YAML),
+                 "COCO_files": {"trn": "COCO_trn.json",
+                                "val": "COCO_val.json"},
+                 "seed": 7}
+        t0 = time.perf_counter()
+        training.run(block, max_iter=DP_RUN_STEPS, batch_size=TB,
+                     n_devices=n, backend="nccl", log_every=1,
+                     device="cuda", stats=stats)
+        run_s = time.perf_counter() - t0
+        log_dir = os.path.join(wd, "logs")
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f]
+        ckpts = sorted(f for f in os.listdir(log_dir) if f.endswith(".npz"))
+        tree, ck_step = load_params(os.path.join(log_dir, ckpts[0]))
+        eng = TileInferenceEngine(from_jax_params(tree),
+                                  from_detectron2_yaml(
+                                      os.path.join(ROOT, YAML)),
+                                  batch_size=TB, mask_format="bits")
+        ds = training.CocoTileDataset(paths["trn"], paths["trn_images"], 16)
+        out = next(eng.run([np.stack([ds.load(i)[0] for i in range(TB)])]))
+        # the loader's cost a global batch (each rank builds all of it)
+        rng = np.random.default_rng(0)
+        loader = []
+        for size in (640, 800):
+            t1 = time.perf_counter()
+            training.make_batch(ds, rng, rng.permutation(len(ds))[:TB],
+                                target_size=size)
+            loader.append(time.perf_counter() - t1)
+    _require(len(lines) == DP_RUN_STEPS and all(
+        np.isfinite(ln[k]) for ln in lines for k in (
+            "loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg",
+            "loss_mask", "total", "lr", "imgs_per_sec")),
+        f"dp_train_run: losses {lines}")
+    want = {k: DP_RUN_STEPS * STEP_LAUNCHES.get(k, 0)
+            for k in stats["ranks"][0]["launches"]}
+    _require(len(stats["ranks"]) == n and all(
+        r["launches"] == want for r in stats["ranks"]),
+        f"dp_train_run: launches {stats['ranks']}, expected {want} a rank")
+    _require(ckpts == [f"model_{DP_RUN_STEPS - 1:07d}.npz"]
+             and ck_step == DP_RUN_STEPS, f"dp_train_run: {ckpts}")
+    _require(out["boxes"].shape == (TB, 100, 4) and bool(
+        np.isfinite(out["boxes"]).all()), "dp_train_run: engine answer")
+    s_step = _host_s_per_step(lines, TB)
+    res = {"phase": "dp_train_run", "ranks": n, "backend": "nccl",
+           "profile": f"from_detectron2_yaml({YAML!r}), bf16, multiscale",
+           "batch": TB, "steps": DP_RUN_STEPS, "run_s": run_s,
+           "losses": lines, "host_s_per_step": s_step,
+           "images_per_s": TB / s_step,
+           "train_path_host_s_per_step": train_res["host_s_per_step"],
+           "train_path_images_per_s": TB / train_res["host_s_per_step"],
+           "loader_s_per_global_batch": {"640": loader[0],
+                                         "800": loader[1]},
+           "checkpoint": ckpts[0],
+           "launches_per_rank": [r["launches"] for r in stats["ranks"]],
+           "launches": _sum_counts(*[r["launches"]
+                                     for r in stats["ranks"]])}
+    _emit(res)
+    return res
+
+
+def phase_dp_infer() -> dict:
+    """dp_infer: the sharded ``TileInferenceEngine`` (every card, or two
+    shards on cuda:0 when there is one card) on the parity profile in
+    bf16 (K2 takes bf16 levels), B=16, bits, random weights; two batches
+    of 16 and a tail of 9 after a warm-up batch; K2 and K3 twice a shard
+    and batch. Checks: its outputs equal, bit for bit, those of a
+    one-device engine at the shard's batch size fed the same rows (the
+    same padded tail). Beside it, the one-device engine at B=16: with
+    random weights every parity slot is valid and the bf16 forward at
+    batch 8 and 16 (other conv algorithms) orders near-equal scores
+    differently, so the flips of valid flags or classes and the boxes
+    beyond rtol 1e-2, atol 0.5 are counted for the sharded and the
+    batch-8 engine alike, not required to be 0."""
+    from roadsurf_tpu_torch.engine import TileInferenceEngine
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+    from roadsurf_tpu_torch.utils.weights import from_jax_params
+
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n)] if n > 1 \
+        else ["cuda:0", "cuda:0"]
+    b = PB // len(devices)
+    cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
+    state = from_jax_params(_random_tree(cfg, torch.Generator()
+                                         .manual_seed(11)))
+    rng = np.random.default_rng(4)
+    warm = rng.integers(0, 255, (PB, TILE, TILE, 3), np.uint8)
+    batches = [rng.integers(0, 255, (k, TILE, TILE, 3), np.uint8)
+               for k in (PB, PB, PB // 2 + 1)]
+
+    def shard_rows(batch):
+        """The batch padded as the engine pads it, in shards of b rows."""
+        pad = np.zeros((PB - len(batch),) + batch.shape[1:], np.uint8)
+        full = np.concatenate([batch, pad])
+        return [full[i:i + b] for i in range(0, PB, b)]
+
+    runs = {"sharded": (devices, PB, batches),
+            "one_shard": (devices[:1], b,
+                          [c for x in batches for c in shard_rows(x)]),
+            "one": (devices[:1], PB, batches)}
+    out, tps, counts = {}, {}, {}
+    for label, (devs, bs, feed) in runs.items():
+        eng = TileInferenceEngine(state, cfg, batch_size=bs, devices=devs,
+                                  mask_format="bits")
+        _require(len(eng.replicas) == len(devs), f"{label}: replicas")
+        list(eng.run(iter(shard_rows(warm) if bs < PB else [warm])))
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out[label] = list(eng.run(iter(feed)))
+        tps[label] = sum(len(x) for x in batches) \
+            / (time.perf_counter() - t0)
+        counts[label] = _read_counts()
+        forwards = len(devs) * len(feed)
+        want = {k: 0 for k in counts[label]}
+        want.update({"roi_align_blocked": 2 * forwards, "nms": 2 * forwards})
+        _require(counts[label] == want,
+                 f"dp_infer {label}: launches {counts[label]}, want {want}")
+        del eng
+    # the batch-8 engine's outputs regrouped as the sharded engine's
+    per = len(devices)
+    regrouped = [{k: np.concatenate([o[k] for o in out["one_shard"][
+        i * per:(i + 1) * per]])[:len(x)] for k in out["one_shard"][0]}
+        for i, x in enumerate(batches)]
+    for got, want in zip(out["sharded"], regrouped):
+        for k in want:
+            _require(np.array_equal(got[k], want[k]),
+                     f"dp_infer: {k} of the sharded engine differs from "
+                     "the one-device engine at the shard's batch size")
+
+    def against_b16(res):
+        pairs = list(zip(res, out["one"]))
+        return {"valid_or_class_flips": sum(
+                    int((x["valid"] != y["valid"]).sum()
+                        + (x["classes"] != y["classes"]).sum())
+                    for x, y in pairs),
+                "boxes_beyond_rtol_1e-2_atol_0.5": sum(
+                    int((np.abs(x["boxes"] - y["boxes"])
+                         > 0.5 + 1e-2 * np.abs(y["boxes"])).sum())
+                    for x, y in pairs),
+                "max_box_diff_px": max(float(np.abs(
+                    x["boxes"] - y["boxes"]).max()) for x, y in pairs)}
+
+    res = {"phase": "dp_infer", "devices": devices,
+           "profile": f"from_detectron2_yaml({YAML!r}), bf16",
+           "batch": PB, "shard": b,
+           "tiles": sum(len(x) for x in batches),
+           "equal_to_one_device_at_shard_batch": True,
+           "valid": int(sum(o["valid"].sum() for o in out["sharded"])),
+           "against_one_device_b16": {"sharded": against_b16(
+               out["sharded"]), "one_device_b8": against_b16(regrouped)},
+           "tiles_per_s": tps,
+           "launches_by_engine": counts, "launches": counts["sharded"]}
+    _emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# tif2cog
+
+COG_SIDE, COG_RUN_SIDE, COG_RUN_IMAGES = 10000, 2000, 3
+
+
+def _lv95_image(rng, side: int, px: float) -> object:
+    """A SWISSIMAGE-RS-like EPSG:2056 raster: ``side``² pixels of ``px`` m,
+    4 bands of uint16 (NIR, R, G, B) over 1..65534 with a nodata (0)
+    border of 20 rows and 30 columns."""
+    from roadsurf_tpu_torch.io.geotiff import Raster
+
+    data = rng.integers(1, 65535, (side, side, 4), dtype=np.uint16)
+    data[:20] = 0
+    data[-20:] = 0
+    data[:, :30] = 0
+    data[:, -30:] = 0
+    x0 = 2600000.0 + float(rng.integers(0, 50)) * 1000.0
+    y0 = 1200000.0 - float(rng.integers(0, 50)) * 1000.0
+    return Raster(data=data, origin=(x0, y0), pixel_size=(px, px),
+                  epsg=2056, nodata=0)
+
+
+def _tiff_levels(path: str) -> list:
+    """(width, height) of every IFD of a little-endian TIFF."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    off = struct.unpack_from("<I", buf, 4)[0]
+    levels = []
+    while off:
+        n = struct.unpack_from("<H", buf, off)[0]
+        tags = {}
+        for i in range(n):
+            tag, typ, _, val = struct.unpack_from("<HHII", buf,
+                                                  off + 2 + 12 * i)
+            tags[tag] = val & 0xFFFF if typ == 3 else val
+        levels.append((tags[256], tags[257]))
+        off = struct.unpack_from("<I", buf, off + 2 + 12 * n)[0]
+    return levels
+
+
+def phase_cog_path() -> dict:
+    """cog_path: the tif2cog device stages. (a) One SWISSIMAGE-RS-sized
+    image (1 km² at 0.1 m: COG_SIDE² × 4 uint16, 800 MB, EPSG:2056, a
+    nodata border): the host inverse map in row chunks, the device
+    gather, equal to a numpy gather of the same indices; ``band_stats``
+    min/max equal to numpy's, mean/std within rtol 1e-5 of float64
+    numpy; ``scale_to_byte`` equal to its plain CPU version; each stage
+    timed apart. (b) ``Tif2Cog.run`` over a ``LocalStore`` under
+    ``_build/`` on COG_RUN_IMAGES images of COG_RUN_SIDE²: steps 1-3, a
+    rerun that skips every image, and the COGs read back in EPSG:3857
+    with their overviews."""
+    import tempfile
+
+    from roadsurf_tpu_torch.io.geotiff import read_geotiff, write_geotiff
+    from roadsurf_tpu_torch.io.objstore import LocalStore
+    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+    from roadsurf_tpu_torch.pipeline import cog_pipeline as cp
+
+    rng = np.random.default_rng(9)
+    r = _lv95_image(rng, COG_SIDE, 0.1)
+    h, w, c = r.data.shape
+    dev = torch.device("cuda")
+    grid = cp.dst_grid(r, 3857)
+    ow, oh = grid[4], grid[5]
+    t0 = time.perf_counter()
+    chunks = [cp.inverse_map(r, grid, 3857, r0, min(r0 + cp.CHUNK_ROWS, oh))
+              for r0 in range(0, oh, cp.CHUNK_ROWS)]
+    map_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src = cp._upload(r.data, dev).reshape(h * w, c)
+    idx = [torch.from_numpy(i).to(dev) for i, _ in chunks]
+    ok = [torch.from_numpy(v).to(dev) for _, v in chunks]
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    fill = torch.zeros((), dtype=src.dtype, device=dev)
+    out = torch.empty((oh * ow, c), dtype=src.dtype, device=dev)
+
+    def gather_all():
+        row = 0
+        for i, v in zip(idx, ok):
+            out[row:row + len(i)] = cp.gather(src, i, v, fill)
+            row += len(i)
+
+    gather_ms = _time_ms(gather_all, 3, warmup=1)
+    warped = out.cpu().numpy().view(np.uint16).reshape(oh, ow, c)
+    flat_idx = np.concatenate([i for i, _ in chunks])
+    flat_ok = np.concatenate([v for _, v in chunks])
+    want = np.where(flat_ok[:, None], r.data.reshape(h * w, c)[flat_idx],
+                    0).reshape(oh, ow, c)
+    _require(np.array_equal(warped, want),
+             "cog_path: the device gather differs from numpy's")
+    del src, idx, ok, out, want, flat_idx
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = cp.band_stats(warped, nodata=0.0, device=dev)
+    stats_s = time.perf_counter() - t0
+    worst = 0.0
+    for b in range(c):
+        x = warped[:, :, b]
+        v = x[x != 0].astype(np.float64)
+        s = stats[str(b + 1)]
+        _require((s["min"], s["max"]) == (float(v.min()), float(v.max())),
+                 f"cog_path: band {b + 1} min/max {s} vs numpy")
+        for k, ref in (("mean", v.mean()), ("stddev", v.std())):
+            err = abs(s[k] - ref) / abs(ref)
+            worst = max(worst, err)
+            _require(err <= 1e-5, f"cog_path: band {b + 1} {k} {s[k]} vs "
+                                  f"float64 {ref}")
+        del v
+    bounds = [(2000.0, 52000.0), (1000.0, 60000.0), (1000.0, 60000.0),
+              (1000.0, 60000.0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    byte = cp.scale_to_byte(warped, bounds, device=dev)
+    scale_s = time.perf_counter() - t0
+    _require(np.array_equal(byte, cp.scale_to_byte(warped, bounds,
+                                                   device="cpu")),
+             "cog_path: scale_to_byte on the card differs from the CPU's")
+    del byte, warped
+    big = {"image": [h, w, c], "bytes": r.data.nbytes,
+           "dst": [oh, ow], "valid_share": float(np.mean(
+               np.concatenate([v for _, v in chunks]))),
+           "inverse_map_host_s": map_s, "h2d_s": h2d_s,
+           "gather_ms": gather_ms, "band_stats_s": stats_s,
+           "band_stats_worst_rel_err": worst, "scale_to_byte_s": scale_s}
+    del chunks, r
+
+    # (b) the pipeline over a LocalStore
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as wd:
+        store = LocalStore(os.path.join(wd, "store"))
+        for i in range(COG_RUN_IMAGES):
+            im = _lv95_image(rng, COG_RUN_SIDE, 0.5)
+            p = os.path.join(wd, f"src{i}.tif")
+            write_geotiff(p, im.data, im.bounds, epsg=2056, nodata=0)
+            store.upload(p, f"in/swissimage_{i}.tif")
+        pipe = cp.Tif2Cog(store, "in", "tif", "cog",
+                          workdir=os.path.join(wd, "work"), device=dev)
+        first = pipe.run()
+        again = pipe.run()
+        n = COG_RUN_IMAGES
+        _require(first["done"] == {"step1": n, "step2": n, "step3": n},
+                 f"cog_path: steps {first['done']}")
+        _require(again["done"] == {"step1": 0, "step2": 0, "step3": 0},
+                 f"cog_path: rerun {again['done']}")
+        levels = []
+        for i in range(n):
+            for prefix, dtype in (("tif", np.uint16), ("cog", np.uint8)):
+                path = store.open_path(f"{prefix}/swissimage_{i}.tif")
+                back = read_geotiff(path)
+                _require(back.epsg == 3857 and back.data.dtype == dtype
+                         and back.data.shape == (COG_RUN_SIDE,
+                                                 COG_RUN_SIDE, 4),
+                         f"cog_path: {path} reads back as {back.epsg}, "
+                         f"{back.data.dtype}, {back.data.shape}")
+                lv = _tiff_levels(path)
+                _require(lv[1:] == [((COG_RUN_SIDE + f - 1) // f,) * 2
+                                    for f in (2, 4, 8, 16, 32, 64, 128, 256)],
+                         f"cog_path: {path} overviews {lv}")
+                levels.append(len(lv))
+    res = {"phase": "cog_path", "swissimage_rs_1km2": big,
+           "pipeline": {"images": n, "side": COG_RUN_SIDE,
+                        "seconds": first["seconds"],
+                        "summary": first["summary"],
+                        "ifds_per_file": sorted(set(levels))}}
     _emit(res)
     return res
 
@@ -1799,6 +2272,13 @@ def main() -> int:
     runs["host_stage"] = phase_host_stage()
     torch.cuda.empty_cache()
     runs["train_path"] = phase_train_path()
+    torch.cuda.empty_cache()
+    runs["dp_train"] = phase_dp_train()
+    runs["dp_train_run"] = phase_dp_train_run(runs["train_path"])
+    torch.cuda.empty_cache()
+    runs["dp_infer"] = phase_dp_infer()
+    torch.cuda.empty_cache()
+    phase_cog_path()
 
     # the times are one forward's calls at the main paths' shapes: both
     # poolers (K2 at its adaptive sampling), the RPN's and the class NMS

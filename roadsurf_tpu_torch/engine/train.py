@@ -26,6 +26,15 @@ What differs from the reference, and why:
 * **Poolers.** On the card both poolers' forwards are K1 or K2 and their
   backward is K5 (``ops/roi_align.py``); the reference trains through its
   XLA separable pooler.
+* **Data parallelism** (``group``: ``parallel.mesh.DataParallelGroup``)
+  has the reference's global-batch semantics, which jit's psum gives its
+  mesh step, with explicit collectives: every normaliser takes the global
+  batch (B·world) and the mask loss the global count of valid mask ROIs
+  (summed over the ranks before the division), so each rank's ``total``
+  is its share of the global loss; the gradients are summed over the
+  ranks in one flat buffer, and weight decay and momentum follow the sum
+  identically on every rank, so the parameters stay bitwise equal. Every
+  rank draws the global batch's uniforms and keeps its rows.
 
 Master weights stay float32; the forward casts them to the compute dtype
 each step (bf16 for the YAML, float32 in the CPU parity tests).
@@ -249,17 +258,23 @@ def _anchors(image_size: int, cfg: ModelConfig):
 
 
 def compute_losses(params: dict, batch: dict, draws: dict,
-                   cfg: ModelConfig, image_size: int) -> dict:
+                   cfg: ModelConfig, image_size: int, group=None) -> dict:
     """The training losses of a batch (tensors on one device): image (B, S,
     S, 3) uint8, gt_boxes (B, G, 4) f32, gt_classes (B, G) int, gt_valid
     (B, G) bool, gt_masks (B, G, S, S) uint8; ``draws`` from
-    :func:`draw_uniforms`. Returns the reference's loss dict of 0-d
-    float32 tensors, ``total`` their sum."""
+    :func:`draw_uniforms`, B rows. Returns the reference's loss dict of 0-d
+    float32 tensors, ``total`` their sum.
+
+    With ``group`` the batch is this rank's share of a global batch of
+    B·world images, and the losses are this rank's shares of the global
+    batch's: every normaliser counts the global batch, and the mask loss
+    the valid mask ROIs of all ranks."""
     dtype = compute_dtype(cfg)
     images = batch["image"]
     gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
     gt_classes = batch["gt_classes"].long()
     B, S, G = images.shape[0], image_size, gt_boxes.shape[1]
+    Bg = B * (group.world if group is not None else 1)
     dev = images.device
     remat = _remat(cfg)
     x = preprocess(images, cfg, S).to(dtype).permute(0, 3, 1, 2) \
@@ -291,7 +306,7 @@ def compute_losses(params: dict, batch: dict, draws: dict,
         cfg.rpn_bbox_weights)
     reg = smooth_l1(all_deltas, tgt, cfg.rpn_smooth_l1_beta).sum(dim=-1)
     reg = torch.where(pos_sel, reg, torch.zeros_like(reg)).sum(dim=-1)
-    norm = B * cfg.rpn_batch_per_image
+    norm = Bg * cfg.rpn_batch_per_image
     loss_rpn_cls = obj.sum() / norm
     loss_rpn_reg = reg.sum() / norm
 
@@ -329,7 +344,7 @@ def compute_losses(params: dict, batch: dict, draws: dict,
         _cast(params["box_head"], dtype), feats4, s_props)
     cls_el = softmax_ce(class_logits.float(), s_cls, K + 1)
     loss_cls = torch.where(s_valid, cls_el, torch.zeros_like(cls_el)).sum() \
-        / (B * T)
+        / (Bg * T)
     matched_boxes = torch.gather(gt_boxes, 1,
                                  s_matched[..., None].expand(-1, -1, 4))
     tgt_deltas = get_deltas(s_props, matched_boxes, cfg.box_bbox_weights)
@@ -338,7 +353,7 @@ def compute_losses(params: dict, batch: dict, draws: dict,
                         fg_cls[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
     reg_el = smooth_l1(pred, tgt_deltas, 0.0).sum(dim=-1)
     loss_box_reg = torch.where(s_pos, reg_el, torch.zeros_like(reg_el)) \
-        .sum() / (B * T)
+        .sum() / (Bg * T)
 
     # ---- mask head --------------------------------------------------------
     M = int(T * cfg.roi_positive_fraction)
@@ -380,6 +395,11 @@ def compute_losses(params: dict, batch: dict, draws: dict,
                             m_matched[s_], m_cls[s_], m_valid[s_],
                             batch["gt_masks"][s_])
         mask_sum, n_valid = mask_sum + part, n_valid + count
+    if group is not None:
+        # the global count (an integer, exact in float32 below 2^24; no
+        # gradient), summed over the ranks before the division
+        n_valid = group.all_reduce([n_valid.to(torch.float32)])[0] \
+            .to(n_valid.dtype)
     loss_mask = mask_sum / (n_valid.clamp(min=1) * res * res)
 
     losses = {"loss_rpn_cls": loss_rpn_cls, "loss_rpn_loc": loss_rpn_reg,
@@ -445,35 +465,51 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return g
 
 
-def make_train_step(cfg: ModelConfig, image_size: int):
+def make_train_step(cfg: ModelConfig, image_size: int, group=None):
     """One SGD step: ``step(state, batch, draws=None) -> metrics`` updates
     the state in place (parameters, velocity, step) and returns the loss
-    dict and ``lr`` as 0-d tensors. ``draws`` default to the step's
-    generator (:func:`step_generator`). The update is the reference's, in
-    float32: g + wd·p; v = m·v + g; p = p − lr·v, on every non-frozen leaf
-    (biases included); frozen leaves and their velocity stay as they
-    are."""
+    dict and ``lr`` as 0-d tensors. ``draws`` are the global batch's
+    (B·world rows; default: the step's generator,
+    :func:`step_generator`). The update is the reference's, in float32:
+    g + wd·p; v = m·v + g; p = p − lr·v, on every non-frozen leaf (biases
+    included); frozen leaves and their velocity stay as they are.
+
+    With ``group`` the batch is this rank's rows of the global batch
+    (``parallel.mesh.shard_batch``), the gradients are summed over the
+    ranks before the update and the metrics are the global batch's (the
+    ranks' shares summed)."""
+    world, rank = (group.world, group.rank) if group is not None else (1, 0)
+
     def step_fn(state: dict, batch: dict, draws: dict | None = None):
         params = state["params"]
         ps, vs = zip(*[(p, v) for (path, p), (_, v) in zip(
             leaves(params), leaves(state["velocity"]))
             if not _is_frozen(path, cfg.freeze_at)])
         ps, vs = list(ps), list(vs)
+        B, G = batch["gt_boxes"].shape[:2]
         if draws is None:
-            B, G = batch["gt_boxes"].shape[:2]
-            draws = draw_uniforms(cfg, image_size, B, G, step_generator(
-                state["seed"], state["step"], batch["image"].device))
-        losses = compute_losses(params, batch, draws, cfg, image_size)
-        grads = torch.autograd.grad(losses["total"], ps)
+            draws = draw_uniforms(cfg, image_size, B * world, G,
+                                  step_generator(state["seed"],
+                                                 state["step"],
+                                                 batch["image"].device))
+        draws = {k: v[rank * B:(rank + 1) * B] for k, v in draws.items()}
+        losses = compute_losses(params, batch, draws, cfg, image_size,
+                                group)
+        grads = list(torch.autograd.grad(losses["total"], ps))
+        if group is not None:
+            grads = group.all_reduce(grads)
         lr = lr_schedule(state["step"], cfg)
         with torch.no_grad():
-            g = torch._foreach_add(list(grads),
+            g = torch._foreach_add(grads,
                                    torch._foreach_mul(ps, cfg.weight_decay))
             torch._foreach_mul_(vs, cfg.momentum)
             torch._foreach_add_(vs, g)
             torch._foreach_sub_(ps, torch._foreach_mul(vs, lr))
         state["step"] += 1
         metrics = {k: v.detach() for k, v in losses.items()}
+        if group is not None:
+            metrics = dict(zip(metrics, group.all_reduce(
+                [torch.stack(list(metrics.values()))])[0].unbind()))
         metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
         return metrics
 
@@ -481,7 +517,7 @@ def make_train_step(cfg: ModelConfig, image_size: int):
 
 
 @functools.lru_cache(maxsize=16)
-def train_step(cfg: ModelConfig, image_size: int):
-    """The step of (cfg, image size), made once a process: repeated
+def train_step(cfg: ModelConfig, image_size: int, group=None):
+    """The step of (cfg, image size, group), made once a process: repeated
     trainings (resumed runs, tests) share it."""
-    return make_train_step(cfg, image_size)
+    return make_train_step(cfg, image_size, group)

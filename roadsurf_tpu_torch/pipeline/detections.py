@@ -1,8 +1,9 @@
-"""make_detections on one GPU: GeoTIFF tiles -> georeferenced detection
-polygons in a GeoPackage.
+"""make_detections: GeoTIFF tiles -> georeferenced detection polygons in a
+GeoPackage, on one GPU or every visible one.
 
     python -m roadsurf_tpu_torch.pipeline.detections \\
-        config/config_obj_detec.yaml [--batch-size 16] [--device cuda]
+        config/config_obj_detec.yaml [--batch-size 16] [--device cuda] \\
+        [--n-devices N]
 
 Port of the reference package's ``pipeline/detections.py``: for each
 dataset's COCO tile list, decode the tiles on 8 threads behind a
@@ -16,8 +17,13 @@ EPSG:4326 with ``score`` and ``det_class``. The same int8 calibration
 has no quant tree), the same stage breakdown (decode, h2d, d2h and
 vectorize thread-seconds).
 
-Differences from the reference: no device mesh and no scan-k dispatch (the
-port's engine runs one device, one batch a dispatch); the random weights
+With several devices the engine shards each batch over them (one replica
+a device, ``engine/infer.py``), as the reference's engine does over its
+mesh of ``jax.devices()``; ``n_devices`` defaults likewise to every
+visible GPU (one device on the CPU).
+
+Differences from the reference: no scan-k dispatch (one batch a
+dispatch); the random weights
 used when no checkpoint is found come from ``torch.Generator`` seed 0
 (torch cannot reproduce ``jax.random``); the stage times can also be
 handed back to the caller (``stats``). The records come from the C++
@@ -128,15 +134,35 @@ def vectorize_one(dets: dict, bi: int, bounds, tile_size: int = 256,
     return recs
 
 
+def engine_devices(device, n_devices: int | None = None) -> list:
+    """The engine's devices: ``device`` alone for one, else ``n_devices``
+    CUDA devices ``cuda:0..n-1`` (default every visible GPU; more than
+    are visible raise) or ``n_devices`` replicas on the CPU (default
+    one)."""
+    from ..parallel import default_world
+
+    dev = resolve_device(device)
+    n = n_devices or default_world(dev)
+    if n == 1 or dev.type != "cuda":
+        return [dev] * n
+    if n > torch.cuda.device_count():
+        raise ValueError(f"{n} devices asked for, "
+                         f"{torch.cuda.device_count()} visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def detect_tiles(state: dict, cfg: ModelConfig, image_paths: list[str],
                  tile_bounds: list, batch_size: int = 16,
                  score_thresh: float = 0.05, rdp_eps: float = 0.75,
                  tile_size: int = 256, progress_every: int = 50,
                  mask_format: str = "bits", device="cuda",
+                 n_devices: int | None = None,
                  stats: dict | None = None) -> list[dict]:
     """Run inference over tile images; returns the per-detection records
     (geometry in EPSG:3857 of the tile bounds, score, det_class) in tile
     order. tile_bounds[i] = (west, south, east, north) in 3857 for image i.
+    The engine shards each batch over ``n_devices`` devices
+    (:func:`engine_devices`).
     ``stats``, if given, gains the stage breakdown: ``wall_s`` (this
     call), ``decode_s``, ``h2d_s``, ``d2h_s``, ``vectorize_s``
     (thread-seconds), and the counts ``tiles``, ``detections`` (valid, at
@@ -161,7 +187,7 @@ def detect_tiles(state: dict, cfg: ModelConfig, image_paths: list[str],
 
     engine = TileInferenceEngine(state, cfg, batch_size=batch_size,
                                  with_masks=True, mask_format=mask_format,
-                                 device=device)
+                                 devices=engine_devices(device, n_devices))
     n = len(image_paths)
     stage_s = {"decode": 0.0, "vectorize": 0.0}
     lock = threading.Lock()
@@ -244,11 +270,13 @@ def detect_dataset(state: dict, cfg: ModelConfig, coco: dict,
 
 def run(cfg: dict, model_cfg: ModelConfig | None = None,
         batch_size: int = 16, mask_format: str = "bits", device="cuda",
+        n_devices: int | None = None,
         stats: dict | None = None) -> list[str]:
     """Execute the ``make_detections.py`` YAML block; returns the written
     files. Raises when ``device`` names CUDA and no CUDA device is
-    present. ``stats``, if given, gains the stage breakdown summed over the
-    datasets."""
+    present. The engine shards each batch over ``n_devices`` devices
+    (default: every visible GPU). ``stats``, if given, gains the stage
+    breakdown summed over the datasets."""
     device = resolve_device(device)
     wd = cfg["working_directory"]
     manifest = Manifest()
@@ -297,7 +325,7 @@ def run(cfg: dict, model_cfg: ModelConfig | None = None,
                                batch_size=batch_size,
                                score_thresh=score_thresh, rdp_eps=rdp_eps,
                                mask_format=mask_format, device=device,
-                               stats=stats)
+                               n_devices=n_devices, stats=stats)
         table_4326 = table.to_crs(4326) if len(table) else table
         p = os.path.join(wd, f"{ds}_detections_at_{thr_tag}_threshold.gpkg")
         write_gpkg(table_4326, p, layer=f"{ds}_detections")
@@ -311,13 +339,15 @@ def run(cfg: dict, model_cfg: ModelConfig | None = None,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Runs Mask R-CNN inference over the generated tilesets "
-                    "on one GPU and writes georeferenced detection "
-                    "polygons.")
+                    "and writes georeferenced detection polygons.")
     parser.add_argument("config_file", type=str, help="a YAML config file")
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain "
                              "versions")
+    parser.add_argument("--n-devices", type=int, default=None,
+                        help="devices the engine shards each batch over "
+                             "(default: every visible GPU)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s",
@@ -325,7 +355,8 @@ def main(argv=None) -> int:
     tic = perf_counter()
     logger.info(f"Using {args.config_file} as config file.")
     cfg = load_script_config(args.config_file, "make_detections.py")
-    run(cfg, batch_size=args.batch_size, device=args.device)
+    run(cfg, batch_size=args.batch_size, device=args.device,
+        n_devices=args.n_devices)
     logger.info(f"Done. Elapsed time: {perf_counter() - tic:.2f} seconds")
     return 0
 

@@ -1,8 +1,9 @@
-"""train_model on one GPU: Mask R-CNN training over the COCO tilesets.
+"""train_model: Mask R-CNN training over the COCO tilesets, on one GPU or
+data-parallel over every visible one.
 
     python -m roadsurf_tpu_torch.pipeline.training \\
         config/config_obj_detec.yaml [--max-iter N] [--batch-size B] \\
-        [--device cuda]
+        [--device cuda] [--n-devices N] [--backend nccl|gloo]
 
 Port of the reference package's ``pipeline/training.py`` (its
 ``scripts/train_model.py``): the ``train_model.py`` block of the YAML
@@ -24,8 +25,17 @@ without Pillow (``pipeline/resize.py``; the card's installation has none),
 byte for byte; the training step is ``engine/train.py``'s, its sampling
 draws from a ``torch.Generator`` seeded from (seed, step), and the random
 initial weights from ``torch.Generator`` seed ``seed`` (torch cannot
-reproduce ``jax.random``); one device (``n_devices > 1`` raises until the
-multi-GPU slice).
+reproduce ``jax.random``).
+
+Data parallelism (``n_devices`` ranks, default every visible GPU as the
+reference's default is every device): one process a rank
+(``parallel/mesh.py``; NCCL on CUDA, gloo on the CPU or when asked for),
+the reference's global-batch step (``engine/train.py``). Every rank runs
+the same ``Prefetcher`` over the whole batch (same seed, same multiscale
+size) and keeps its rows ``[r·b, (r+1)·b)``, so a rank's batch is byte
+for byte its share of the one-process batch. Rank 0 alone writes the
+eval, the checkpoints and ``metrics.jsonl`` while the others wait at a
+barrier; every rank resumes from the newest checkpoint.
 """
 
 from __future__ import annotations
@@ -44,11 +54,12 @@ import torch
 
 from ..engine.coco_eval import evaluate_dataset
 from ..engine.train import compute_losses, draw_uniforms, init_train_state, \
-    train_step
+    train_step, tree_map
 from ..geom import _native as N
 from ..io.geotiff import read_geotiff
 from ..models import from_detectron2_yaml, init_params
 from ..models.config import ModelConfig
+from ..parallel import default_world, launch, replicate, shard_batch
 from ..utils.config import load_script_config
 from ..utils.d2_convert import merge_params
 from ..utils.device import resolve_device
@@ -281,7 +292,7 @@ def train(cfg: ModelConfig, trn_coco: str, trn_images: str, log_dir: str,
           image_size: int = 256, max_instances: int = 16,
           init_checkpoint: str | None = None, log_every: int = 20,
           seed: int = 7, multiscale: bool | None = None,
-          device="cuda") -> dict:
+          device="cuda", group=None) -> dict:
     """Run the training loop on ``device``; returns the final train state
     (``engine.train.init_train_state``'s, on the device). Raises when
     ``device`` names CUDA and no CUDA device is present.
@@ -289,11 +300,20 @@ def train(cfg: ModelConfig, trn_coco: str, trn_images: str, log_dir: str,
     ``multiscale`` as in the reference: None derives it from the config's
     INPUT block (on iff ``image_size`` is one of several MIN_SIZE_TRAIN
     choices); each batch then is resized to one of ``cfg.min_size_train``.
+
+    ``group`` (``parallel.mesh.DataParallelGroup``): this process is one
+    rank of a data-parallel run on the group's device; ``batch_size`` is
+    the global batch, which the ranks split.
     """
-    dev = resolve_device(device)
+    dev = group.device if group is not None else resolve_device(device)
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    lead = rank == 0
     os.makedirs(log_dir, exist_ok=True)
     max_iter = max_iter or cfg.max_iter
     batch_size = batch_size or cfg.ims_per_batch
+    if batch_size % world:
+        raise ValueError(f"batch {batch_size} does not split over {world} "
+                         "ranks")
 
     ds = CocoTileDataset(trn_coco, trn_images, max_instances)
     if not len(ds):
@@ -318,6 +338,11 @@ def train(cfg: ModelConfig, trn_coco: str, trn_images: str, log_dir: str,
     state = init_train_state(from_jax_train_params(tree), cfg, seed=seed,
                              device=dev)
     state["step"] = start_iter
+    if group is not None:
+        # every rank starts from rank 0's parameters, bit for bit; and no
+        # rank reads the log dir's checkpoints after rank 0 may write one
+        replicate(state["params"], group)
+        group.barrier()
 
     if multiscale is None:
         choices = set(cfg.min_size_train)
@@ -328,7 +353,7 @@ def train(cfg: ModelConfig, trn_coco: str, trn_images: str, log_dir: str,
                         sizes=sizes if multiscale else None)
     val_feeder = None
     val_ds = None
-    if val_coco and os.path.exists(val_coco):
+    if lead and val_coco and os.path.exists(val_coco):
         val_ds = CocoTileDataset(val_coco, val_images, max_instances)
         if len(val_ds):
             val_feeder = Prefetcher(val_ds, batch_size, seed=99,
@@ -336,12 +361,12 @@ def train(cfg: ModelConfig, trn_coco: str, trn_images: str, log_dir: str,
         else:
             val_ds = None
 
-    metrics_path = os.path.join(log_dir, "metrics.jsonl")
-    mf = open(metrics_path, "a")
+    mf = open(os.path.join(log_dir, "metrics.jsonl"), "a") if lead \
+        else None
     tb = None
     try:        # TensorBoard events like the reference trainer (optional)
         from torch.utils.tensorboard import SummaryWriter
-        tb = SummaryWriter(log_dir)
+        tb = SummaryWriter(log_dir) if lead else None
     except ImportError:
         pass
 
@@ -378,10 +403,14 @@ def train(cfg: ModelConfig, trn_coco: str, trn_images: str, log_dir: str,
     t0 = time.time()
     try:
         for it in range(start_iter, max_iter):
-            batch = to_device(feeder.next(), dev)
-            metrics = train_step(cfg, batch["image"].shape[1])(state, batch)
+            batch = feeder.next()
+            if group is not None:
+                batch = shard_batch(batch, rank, world)
+            batch = to_device(batch, dev)
+            metrics = train_step(cfg, batch["image"].shape[1], group)(
+                state, batch)
 
-            if (it + 1) % log_every == 0 or it == 0:
+            if lead and ((it + 1) % log_every == 0 or it == 0):
                 m = {k: float(v) for k, v in metrics.items()}
                 m["imgs_per_sec"] = round(
                     batch_size * min(it + 1, log_every)
@@ -392,7 +421,8 @@ def train(cfg: ModelConfig, trn_coco: str, trn_images: str, log_dir: str,
                             f"total={m['total']:.3f} lr={m['lr']:.5f} "
                             f"({m['imgs_per_sec']} img/s)")
 
-            if val_feeder is not None and (it + 1) % cfg.eval_period == 0:
+            eval_step = (it + 1) % cfg.eval_period == 0
+            if val_feeder is not None and eval_step:
                 vb = to_device(val_feeder.next(), dev)
                 v = {f"val_{k}": float(x) for k, x in val_loss(vb).items()}
                 v.update(detection_eval(it + 1))
@@ -401,15 +431,20 @@ def train(cfg: ModelConfig, trn_coco: str, trn_images: str, log_dir: str,
                             f" bbox_AP={v.get('val_bbox/AP')} "
                             f"segm_AP={v.get('val_segm/AP')}")
 
-            if (it + 1) % cfg.checkpoint_period == 0 or it + 1 == max_iter:
+            save = (it + 1) % cfg.checkpoint_period == 0 \
+                or it + 1 == max_iter
+            if lead and save:
                 p = os.path.join(log_dir, f"model_{it:07d}.npz")
                 save_params(p, to_jax_params(state["params"]), step=it + 1)
                 logger.info(f"checkpoint: {p}")
+            if group is not None and (save or eval_step):
+                group.barrier()     # the other ranks wait for rank 0
     finally:
         feeder.close()
         if val_feeder:
             val_feeder.close()
-        mf.close()
+        if mf is not None:
+            mf.close()
         if tb is not None:
             tb.close()
     return state
@@ -418,15 +453,33 @@ def train(cfg: ModelConfig, trn_coco: str, trn_images: str, log_dir: str,
 # ---------------------------------------------------------------------------
 # the entry point: the ``train_model.py`` YAML block
 
+def _train_rank(group, kwargs: dict):
+    """A rank of :func:`run` (the launcher's entry function): ``train`` on
+    this rank; rank 0 hands back its final state as numpy trees."""
+    state = train(**kwargs, group=group)
+    if group.rank:
+        return None
+    return {"params": tree_map(lambda _, t: t.detach().cpu().numpy(),
+                               state["params"]),
+            "velocity": tree_map(lambda _, t: t.detach().cpu().numpy(),
+                                 state["velocity"]),
+            "step": state["step"], "seed": state["seed"]}
+
+
 def run(cfg: dict, max_iter: int | None = None,
         batch_size: int | None = None, n_devices: int | None = None,
-        device="cuda") -> dict:
+        backend: str | None = None, log_every: int = 20, device="cuda",
+        stats: dict | None = None) -> dict:
     """Execute the ``train_model.py`` YAML block; returns the final train
-    state."""
+    state (of rank 0, on the CPU, when it ran data-parallel).
+
+    ``n_devices`` ranks (default: every visible GPU; one on the CPU) run
+    data-parallel in spawned processes, one a device, over ``backend``
+    (NCCL on CUDA, gloo on the CPU; gloo lets several CUDA ranks share a
+    card). One rank runs in this process unless a ``backend`` is named.
+    ``stats``, if given, gains ``ranks``: each rank's kernel launches."""
     device = resolve_device(device)
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError("training runs on one device; multi-GPU "
-                                  "training is not ported yet")
+    n = n_devices or default_world(device)
     wd = cfg["working_directory"]
     log_dir = os.path.join(wd, cfg.get("log_subfolder", "logs"))
     model_cfg = from_detectron2_yaml(os.path.join(
@@ -439,8 +492,10 @@ def run(cfg: dict, max_iter: int | None = None,
     init_ckpt = None
     mw = cfg.get("model_weights", {}) or {}
     url = mw.get("model_zoo_checkpoint_url", "")
+    # a file only: without model_weights the second candidate is the
+    # working directory itself (the reference then fails to load it)
     for cand in (url, os.path.join(wd, os.path.basename(str(url)))):
-        if cand and os.path.exists(str(cand)):
+        if cand and os.path.isfile(str(cand)):
             init_ckpt = str(cand)
             break
 
@@ -452,18 +507,29 @@ def run(cfg: dict, max_iter: int | None = None,
     image_size = int(cfg.get("image_size",
                              model_cfg.min_size_train[-1] if multiscale
                              else 256))
-    return train(model_cfg, trn, os.path.join(wd, "trn-images"), log_dir,
-                 val_coco=val, val_images=os.path.join(wd, "val-images"),
-                 max_iter=max_iter, batch_size=batch_size,
-                 image_size=image_size, init_checkpoint=init_ckpt,
-                 seed=int(cfg.get("seed", 7)), multiscale=multiscale,
-                 device=device)
+    kwargs = dict(cfg=model_cfg, trn_coco=trn,
+                  trn_images=os.path.join(wd, "trn-images"),
+                  log_dir=log_dir, val_coco=val,
+                  val_images=os.path.join(wd, "val-images"),
+                  max_iter=max_iter, batch_size=batch_size,
+                  image_size=image_size, init_checkpoint=init_ckpt,
+                  log_every=log_every, seed=int(cfg.get("seed", 7)),
+                  multiscale=multiscale)
+    if n == 1 and backend is None:
+        return train(**kwargs, device=device)
+    ranks = launch(_train_rank, n, kwargs, device=device, backend=backend)
+    if stats is not None:
+        stats["ranks"] = [{"launches": r["launches"]} for r in ranks]
+    out = ranks[0]["result"]
+    for k in ("params", "velocity"):
+        out[k] = tree_map(lambda _, a: torch.from_numpy(a), out[k])
+    return out
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="Trains the Mask R-CNN road-surface detector on one "
-                    "GPU.")
+        description="Trains the Mask R-CNN road-surface detector, "
+                    "data-parallel over the visible GPUs.")
     parser.add_argument("config_file", type=str, help="a YAML config file")
     parser.add_argument("--max-iter", type=int, default=None,
                         help="override SOLVER.MAX_ITER")
@@ -472,6 +538,15 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain "
                              "versions")
+    parser.add_argument("--n-devices", type=int, default=None,
+                        help="data-parallel ranks, one a device (default: "
+                             "every visible GPU)")
+    parser.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                        help="the ranks' collectives (default: nccl on "
+                             "CUDA, gloo on the CPU; gloo lets ranks share "
+                             "a GPU)")
+    parser.add_argument("--log-every", type=int, default=20,
+                        help="steps between metrics.jsonl lines")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s",
@@ -480,7 +555,8 @@ def main(argv=None) -> int:
     logger.info(f"Using {args.config_file} as config file.")
     cfg = load_script_config(args.config_file, "train_model.py")
     run(cfg, max_iter=args.max_iter, batch_size=args.batch_size,
-        device=args.device)
+        n_devices=args.n_devices, backend=args.backend,
+        log_every=args.log_every, device=args.device)
     logger.info(f"Done. Elapsed time: {time.perf_counter() - tic:.2f} "
                 f"seconds")
     return 0

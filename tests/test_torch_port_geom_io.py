@@ -165,8 +165,10 @@ def test_webmercator_equals_the_reference():
         for a, b in zip(tcrs.transform_xy(src, dst, u, v),
                         jcrs.transform_xy(src, dst, u, v)):
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(ValueError, match="EPSG:2056"):
-        tcrs.transform_xy(2056, 4326, x, y)
+    # a code neither package transforms (CH1903/LV03); EPSG:2056 is
+    # tests/test_torch_cog.py's
+    with pytest.raises(ValueError, match="EPSG:21781"):
+        tcrs.transform_xy(21781, 4326, x, y)
 
 
 def test_table_to_crs_equals_the_reference_frame():

@@ -64,6 +64,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+def test_the_import_check_covers_every_module_of_the_port():
+    """The data-parallel and tif2cog modules among them."""
+    files = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for module in ("parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/dryrun.py", "io/cog.py", "io/objstore.py",
+                   "pipeline/cog_pipeline.py", "utils/profiling.py",
+                   "crs/transform.py"):
+        assert os.path.join("roadsurf_tpu_torch", module) in files, module
+    assert "chip_smoke.py" in files
+
+
 def test_forbidden_matches_the_package_not_the_port():
     assert _forbidden("roadsurf_tpu") and _forbidden("roadsurf_tpu.ops.nms")
     assert _forbidden("jax") and _forbidden("jax.numpy")
@@ -133,7 +144,22 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(state_and_cfg,
         "  detectron2_config_file: absent.yaml\n")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         training.main([str(train_cfg)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        training.main([str(train_cfg), "--n-devices", "2"])
     assert not (tmp_path / "train").exists()
+    # python -m roadsurf_tpu_torch.pipeline.cog_pipeline <config> [--device]
+    # (tests/test_torch_cog.py runs it with --device cpu)
+    from roadsurf_tpu_torch.pipeline import cog_pipeline
+
+    cog_cfg = tmp_path / "cog.yaml"
+    cog_cfg.write_text(
+        "tif2cog.py:\n"
+        "  S3_PREFIX_IN: in\n  S3_PREFIX_TIF: tif\n  S3_PREFIX_COG: cog\n"
+        f"  WORKDIR: {tmp_path / 'work'}\n"
+        f"  LOCAL_STORE_ROOT: {tmp_path / 'store'}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cog_pipeline.main([str(cog_cfg)])
+    assert not (tmp_path / "store").exists()
 
 
 def _module_level(body):

@@ -134,6 +134,17 @@ def check_step(jcfg, tcfg, S: int, B: int = 2):
     got_m = tt.train_step(tcfg, S)(state, torch_batch(batch),
                                    jax_draws(step_key(0), tcfg, S, B, G))
     assert state["step"] == 1
+    return compare_step(jcfg, tree, new_ref, ref_m, got_m,
+                        to_jax_params(state["params"]),
+                        to_jax_params(state["velocity"]))
+
+
+def compare_step(jcfg, tree, new_ref, ref_m, got_m, got_params,
+                 got_velocity):
+    """The port's step (its metrics, and its parameters and velocity in
+    the reference's schema) against the reference's from the same
+    ``tree``: the losses, then each leaf's update (frozen leaves bit for
+    bit). Returns the worst relative velocity error."""
     for k in ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg",
               "loss_mask", "total", "lr"):
         np.testing.assert_allclose(float(got_m[k]), float(ref_m[k]),
@@ -143,8 +154,7 @@ def check_step(jcfg, tcfg, S: int, B: int = 2):
     flat = jax.tree_util.tree_flatten_with_path(tree)[0]
     leaves = jax.tree_util.tree_leaves
     new_p, new_v = leaves(new_ref["params"]), leaves(new_ref["velocity"])
-    got_p = leaves(to_jax_params(state["params"]))
-    got_v = leaves(to_jax_params(state["velocity"]))
+    got_p, got_v = leaves(got_params), leaves(got_velocity)
     n_frozen = n_moved = 0
     worst = 0.0
     for (path, old), ref, ref_v, got, vel in zip(flat, new_p, new_v, got_p,
