@@ -100,7 +100,26 @@ exits non-zero:
    finite. Its line holds s/step, images/s, the peak of allocated memory,
    the eval's seconds, a warm step at every size and one step's device
    split (torch.profiler).
-12. ``dp_train``: the data-parallel training step (``parallel/``,
+12. ``tileset_path``: the user's chain that makes a training set, on the
+   card's host, then training on what it wrote. ``write_scene`` builds a
+   synthetic swissTLM3D scene with the port's writers (a GRID x GRID
+   jittered road grid 150 m apart, its ~760 two-node segments the roads,
+   OBJEKTART 2, 9, 20 and 21, ~3% of unknown surface, covered bridges
+   filtered out; ten forests; a 3 km x 3 km AOI); ``pipeline.label_prep.
+   run`` and ``pipeline.tilesets.run`` take the YAML's blocks, the tiles
+   served as PNG bytes (``png_bytes``, every row Up-filtered) cut from one
+   z18 mosaic (``MosaicOpener``: noise, the ground truth filled in a colour
+   a category by ``geom_rasterize``). Checks: GT plus OTH labels equal the
+   labelled roads; every tile has its GeoTIFF in ``{ds}-images/`` and
+   ``all-images/``, pixels equal to what was served (the PNG decode needs
+   no Pillow) and ``img_metadata.json`` bounds equal to ``xy_bounds``;
+   every COCO ring in [0, 256] with at least 6 values; ``labels_id.json``
+   through ``pd.read_json(orient="index")``. Then ``pipeline.training.
+   train`` 2 steps on ``COCO_trn.json`` (the YAML's model at full width,
+   B=8, multiscale, no eval): finite losses, STEP_LAUNCHES a step. Its
+   line holds each stage's seconds, the counts and the tiles written a
+   second.
+13. ``dp_train``: the data-parallel training step (``parallel/``,
    ``engine/train.py`` with a group): two gloo ranks sharing cuda:0
    (NCCL takes one rank a device; the card computes, gloo carries the
    collectives) against one rank, the YAML's model at full width in
@@ -109,20 +128,20 @@ exits non-zero:
    Checks: each step's losses within 1e-4 + 1e-3·|ref|, the ranks'
    parameters bitwise equal, a rank's step FLOPs at most 1.35/2 of the
    one-rank step's, every rank's K2 2, K5 2 and K3 1 launches a step.
-13. ``dp_train_run``: ``pipeline.training.run`` data-parallel over every
+14. ``dp_train_run``: ``pipeline.training.run`` data-parallel over every
    card with NCCL (one rank a card) on the ``train_model.py`` block over
    train_path's synthetic tileset, bf16, multiscale 640..800, B=8, 3
    steps: finite losses, each rank's launches, one checkpoint that the
    engine loads and answers from; host s/step beside train_path's, and
    the loader's seconds a global batch.
-14. ``dp_infer``: the sharded ``TileInferenceEngine`` (every card, or two
+15. ``dp_infer``: the sharded ``TileInferenceEngine`` (every card, or two
    shards on cuda:0 when there is one), the parity profile in bf16,
    B=16: its outputs equal bit for bit to a one-device engine's at the
    shard's batch size on the same rows, K2 and K3 twice a shard and
    batch; beside it, the differences of both from the one-device engine
    at B=16 (bf16, random weights: near-equal scores reorder), and
    tiles/s of the three.
-15. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
+16. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
    image (10000² × 4 uint16, EPSG:2056, a nodata border): the host's
    inverse map, the gather (equal to numpy's of the same indices),
    ``band_stats`` (min/max equal, mean/std rtol 1e-5 of float64 numpy),
@@ -1329,6 +1348,35 @@ def _split(kernels, wall_ms: float) -> dict:
                             for k in kernels[:12]]}
 
 
+def _counting_steps(training, steps: list):
+    """Wrap ``training.train_step`` so each step appends its size, its
+    device ms (CUDA events) and its kernels' launches to ``steps``;
+    returns the original to put back."""
+    step_fn = training.train_step
+
+    def timed_step(cfg_, size, group=None):
+        fn = step_fn(cfg_, size, group)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            before = _read_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            after = _read_counts()
+            steps.append({"size": size, "ms": start.elapsed_time(end),
+                          "launches": {k: after[k] - before[k]
+                                       for k in after}})
+            return out
+        return run
+
+    training.train_step = timed_step
+    return step_fn
+
+
 def phase_train_path() -> dict:
     """The port's ``train_model``: ``pipeline.training.train`` with the
     YAML's configuration (R50-FPN at full width, multiscale 640..800, B=8,
@@ -1362,26 +1410,7 @@ def phase_train_path() -> dict:
     cfg = replace(cfg, max_iter=TRAIN_STEPS, eval_period=TRAIN_STEPS,
                   checkpoint_period=TRAIN_STEPS)
     steps, evals = [], []
-    step_fn, eval_fn = training.train_step, training.evaluate_dataset
-
-    def timed_step(cfg_, size, group=None):
-        fn = step_fn(cfg_, size, group)
-
-        def run(state, batch):
-            torch.cuda.synchronize()
-            before = _read_counts()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(state, batch)
-            end.record()
-            torch.cuda.synchronize()
-            after = _read_counts()
-            steps.append({"size": size, "ms": start.elapsed_time(end),
-                          "launches": {k: after[k] - before[k]
-                                       for k in after}})
-            return out
-        return run
+    eval_fn = training.evaluate_dataset
 
     def timed_eval(*args, **kw):
         t0 = time.perf_counter()
@@ -1390,7 +1419,8 @@ def phase_train_path() -> dict:
         return out
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    training.train_step, training.evaluate_dataset = timed_step, timed_eval
+    step_fn = _counting_steps(training, steps)
+    training.evaluate_dataset = timed_eval
     try:
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as wd:
             paths = _write_train_dataset(wd)
@@ -1495,6 +1525,320 @@ def phase_train_path() -> dict:
                                       "ap": ap},
            "checkpoint": os.path.basename(ckpt),
            "profile_step": prof}
+    _emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the tileset path: label preparation, tilesets, then training on them
+
+# the synthetic swissTLM3D scene (EPSG:2056): a GRID x GRID jittered road
+# grid SPACING m apart (+-JITTER m), its two-node segments the roads, in a
+# 3 km x 3 km AOI at (SCENE_X0, SCENE_Y0)
+SCENE_X0, SCENE_Y0, SCENE_SIDE = 2600000.0, 1200000.0, 3000.0
+GRID, SPACING, JITTER = 20, 150.0, 30.0
+# OBJEKTART of the width table: 2 and 9, and a few 20 and 21 (re-ranked to
+# 8.5 and 2.5 in the de-overlap); 14 (a ferry) is no road
+ROAD_WIDTHS = {2: 8.0, 9: 4.0, 20: 5.0, 21: 6.0}
+TILESET_STEPS = 2
+
+
+def scene_roads(n: int, seed: int, rare: float = 0.1):
+    """The road lines of an ``n`` x ``n`` jittered grid: 2·n·(n - 1)
+    two-node segments, OBJEKTART 2 or 9 (20 or 21 with probability
+    ``rare``), BELAGSART 100 or 200 (~3% 999997, unknown), KUNSTBAUTE 100
+    (~4% 200, an uncovered bridge; ~4% 300, covered, filtered out)."""
+    import pandas as pd
+
+    from roadsurf_tpu_torch.geom import GeoDataFrame, LineString
+
+    rng = np.random.default_rng(seed)
+    off = (SCENE_SIDE - (n - 1) * SPACING) / 2
+    xs = SCENE_X0 + off + np.arange(n) * SPACING
+    ys = SCENE_Y0 + off + np.arange(n) * SPACING
+    nodes = np.stack(np.meshgrid(xs, ys, indexing="ij"), -1) \
+        + rng.uniform(-JITTER, JITTER, (n, n, 2))
+    segs = [(nodes[i, j], nodes[i + 1, j]) for i in range(n - 1)
+            for j in range(n)]
+    segs += [(nodes[i, j], nodes[i, j + 1]) for i in range(n)
+             for j in range(n - 1)]
+    m = len(segs)
+    cls = rng.choice([2, 9], m)
+    rare_ = rng.random(m) < rare
+    cls[rare_] = rng.choice([20, 21], int(rare_.sum()))
+    surface = rng.choice([100, 200], m)
+    surface[rng.random(m) < 0.03] = 999997
+    kunst = np.full(m, 100)
+    u = rng.random(m)
+    kunst[u < 0.08] = 200
+    kunst[u < 0.04] = 300
+    return GeoDataFrame(pd.DataFrame({
+        "OBJECTID": np.arange(1, m + 1), "OBJEKTART": cls,
+        "KUNSTBAUTE": kunst, "BELAGSART": surface,
+        "geometry": [LineString(np.stack(s)) for s in segs]}),
+        crs="EPSG:2056")
+
+
+def write_scene(root: str, n: int = GRID, seed: int = 0,
+                rare: float = 0.1) -> str:
+    """Label preparation's ``data/`` under ``root`` with the port's writers:
+    the roads of :func:`scene_roads`, ten forest polygons, the AOI (also as
+    the restricted training AOI) and ``roads_parameters.xlsx``; returns the
+    data directory."""
+    import pandas as pd
+
+    from roadsurf_tpu_torch.geom import GeoDataFrame, Polygon
+    from roadsurf_tpu_torch.io import write_file, write_xlsx
+
+    rng = np.random.default_rng(seed + 1)
+    data = os.path.join(root, "data")
+    os.makedirs(os.path.join(data, "swissTLM3D"), exist_ok=True)
+    os.makedirs(os.path.join(data, "AOI"), exist_ok=True)
+    write_file(scene_roads(n, seed, rare),
+               os.path.join(data, "swissTLM3D", "roads_lines.shp"))
+    forests = []
+    for k in range(10):
+        c = SCENE_X0 + rng.uniform(300, SCENE_SIDE - 300, 2) \
+            + np.array([0.0, SCENE_Y0 - SCENE_X0])
+        a = np.sort(rng.uniform(0, 2 * np.pi, 7))
+        r = rng.uniform(40, 160, 7)
+        forests.append(Polygon(c + np.stack([r * np.cos(a),
+                                             r * np.sin(a)], 1)))
+    write_file(GeoDataFrame({"UUID": [f"forest-{k}" for k in range(10)],
+                             "geometry": forests}, crs="EPSG:2056"),
+               os.path.join(data, "swissTLM3D", "forests.shp"))
+    aoi = GeoDataFrame({"geometry": [Polygon(
+        [(SCENE_X0, SCENE_Y0), (SCENE_X0 + SCENE_SIDE, SCENE_Y0),
+         (SCENE_X0 + SCENE_SIDE, SCENE_Y0 + SCENE_SIDE),
+         (SCENE_X0, SCENE_Y0 + SCENE_SIDE)])]}, crs="EPSG:2056")
+    write_file(aoi, os.path.join(data, "AOI", "aoi.shp"))
+    write_file(aoi, os.path.join(data, "AOI", "2_tiles_AOI.shp"))
+    codes = [*ROAD_WIDTHS, 14]
+    write_xlsx(pd.DataFrame({
+        "GDB-Code": codes,
+        "Type": ["Strasse", "Weg", "Zufahrt", "Platz", "Faehre"],
+        "to keep": ["yes"] * len(ROAD_WIDTHS) + ["no"],
+        "Definition": ["road"] * len(ROAD_WIDTHS) + ["ferry"],
+        "Width": [*ROAD_WIDTHS.values(), None]}),
+        os.path.join(data, "roads_parameters.xlsx"))
+    return data
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 image as PNG, every row Up-filtered."""
+    import zlib
+
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c)
+    up = np.diff(rows, axis=0, prepend=np.zeros((1, w * c), np.uint8))
+    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], 1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+class MosaicOpener:
+    """Serves the z18 tiles of ``tiles_aoi.geojson`` as PNG bytes cut from
+    one mosaic: noise, with the ground-truth polygons (EPSG:4326 GeoJSON)
+    filled by the port's ``geom_rasterize`` in one colour a category."""
+
+    COLOURS = {"artificial": (200, 200, 190), "natural": (150, 110, 60)}
+
+    def __init__(self, tiles_geojson: str, labels_geojson: str, seed: int):
+        from roadsurf_tpu_torch.geom import _native
+        from roadsurf_tpu_torch.io import read_file
+        from roadsurf_tpu_torch.tiles import Tile, WebMercatorQuad, \
+            parse_tile_id
+
+        ts = [parse_tile_id(t) for t in read_file(tiles_geojson)["id"]]
+        self.x0, self.y0 = min(t.x for t in ts), min(t.y for t in ts)
+        nx = max(t.x for t in ts) - self.x0 + 1
+        ny = max(t.y for t in ts) - self.y0 + 1
+        self.west, _, _, self.north = WebMercatorQuad.xy_bounds(
+            Tile(self.x0, self.y0, 18))
+        self.px = WebMercatorQuad.tile_span(18) / TILE
+        rng = np.random.default_rng(seed)
+        self.mosaic = rng.integers(60, 120, (ny * TILE, nx * TILE, 3),
+                                   np.uint8)
+        labels = read_file(labels_geojson).to_crs(epsg=3857)
+        self.n_polygons = 0
+        for g, cat in zip(labels.geometry.values, labels["CATEGORY"]):
+            for p in (g.geoms if g.geom_type == "MultiPolygon" else [g]):
+                x0, y0, x1, y1 = p.bounds
+                c0 = max(int((x0 - self.west) / self.px), 0)
+                r0 = max(int((self.north - y1) / self.px), 0)
+                c1 = min(int((x1 - self.west) / self.px) + 1, nx * TILE)
+                r1 = min(int((self.north - y0) / self.px) + 1, ny * TILE)
+                if c1 <= c0 or r1 <= r0:
+                    continue
+                m = _native.rasterize(
+                    _native.pack([[p.exterior_coords,
+                                   *p.interiors_coords]]),
+                    self.west + c0 * self.px, self.px,
+                    self.north - r0 * self.px, -self.px, r1 - r0, c1 - c0)
+                self.mosaic[r0:r1, c0:c1][m > 0] = self.COLOURS[cat]
+                self.n_polygons += 1
+        self.served = 0
+
+    def tile(self, x: int, y: int) -> np.ndarray:
+        r, c = (y - self.y0) * TILE, (x - self.x0) * TILE
+        return self.mosaic[r:r + TILE, c:c + TILE]
+
+    def __call__(self, url: str) -> bytes:
+        z, x, y = url.rsplit("/", 3)[1:]
+        self.served += 1
+        return png_bytes(self.tile(int(x), int(y.split(".")[0])))
+
+
+def phase_tileset_path() -> dict:
+    """The user's chain on the card's host, then training on what it wrote:
+    ``pipeline.label_prep.run`` with the YAML's ``prepare_data_obj_detec.py``
+    block on the synthetic scene (``write_scene``: a GRID x GRID jittered
+    road grid, ~12 km of road a km², ten forests, a 3 km x 3 km AOI), then
+    ``pipeline.tilesets.run`` with its ``generate_tilesets.py`` block, the
+    tiles served as PNG bytes by ``MosaicOpener``, then
+    ``pipeline.training.train`` for TILESET_STEPS steps on the written
+    ``COCO_trn.json`` and ``trn-images/`` (the YAML's model at full width,
+    B=8, multiscale, no eval). Checks: ground-truth plus other labels equal
+    the labelled roads; every tile of ``split_aoi_tiles.geojson`` has its
+    GeoTIFF in ``{ds}-images/`` and ``all-images/``, its pixels equal to
+    what the opener served, and its ``img_metadata.json`` bounds equal to
+    ``WebMercatorQuad.xy_bounds``; every COCO ring within [0, 256] with at
+    least 6 values; ``labels_id.json`` read by ``pd.read_json(orient=
+    "index")``; finite losses and STEP_LAUNCHES a step."""
+    import copy
+    import tempfile
+    from dataclasses import replace
+
+    import pandas as pd
+
+    from roadsurf_tpu_torch.io import read_file, read_geotiff
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+    from roadsurf_tpu_torch.pipeline import label_prep, tilesets, training
+    from roadsurf_tpu_torch.tiles import WebMercatorQuad, parse_tile_id
+    from roadsurf_tpu_torch.utils.config import load_script_config
+
+    yaml_path = os.path.join(ROOT, "config", "config_obj_detec.yaml")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        t0 = time.perf_counter()
+        data = write_scene(root)
+        scene_s = time.perf_counter() - t0
+        lp_cfg = copy.deepcopy(load_script_config(
+            yaml_path, "prepare_data_obj_detec.py"))
+        lp_cfg["input"]["input_folder"] = data
+        lp_cfg["output_folder"] = out = os.path.join(root, "outputs")
+        lp_s = {}
+        label_prep.run(lp_cfg, timings=lp_s)
+        json_dir = os.path.join(out, "json_inputs")
+        roads = read_file(os.path.join(out, "shapefiles_gpkg",
+                                       "roads_for_OD.shp"))
+        gt = read_file(os.path.join(json_dir, "ground_truth_labels.geojson"))
+        oth_path = os.path.join(json_dir, "other_labels.geojson")
+        n_oth = len(read_file(oth_path)) if os.path.exists(oth_path) else 0
+        n_labelled = int(roads["BELAGSART"].isin([100, 200]).sum())
+        _require(len(gt) + n_oth == n_labelled and len(gt) > 0,
+                 f"GT {len(gt)} + OTH {n_oth} labels != {n_labelled} "
+                 "labelled roads")
+
+        ts_cfg = copy.deepcopy(load_script_config(yaml_path,
+                                                  "generate_tilesets.py"))
+        ts_cfg["working_directory"] = out
+        t0 = time.perf_counter()
+        opener = MosaicOpener(os.path.join(json_dir, "tiles_aoi.geojson"),
+                              os.path.join(json_dir,
+                                           "ground_truth_labels.geojson"), 4)
+        mosaic_s = time.perf_counter() - t0
+        ts_s = {}
+        tilesets.run(ts_cfg, opener=opener, timings=ts_s)
+        od = os.path.join(out, ts_cfg["output_folder"])
+        split = read_file(os.path.join(od, "split_aoi_tiles.geojson"))
+        with open(os.path.join(od, "img_metadata.json")) as f:
+            meta = json.load(f)
+        _require(len(meta) == len(split) == opener.served > 0,
+                 f"{len(split)} tiles, {len(meta)} metadata entries, "
+                 f"{opener.served} served")
+        for tid, ds in zip(split["id"], split["dataset"]):
+            t = parse_tile_id(tid)
+            fn = WebMercatorQuad.tile_filename(t)
+            r = read_geotiff(os.path.join(od, f"{ds}-images", fn))
+            _require(os.path.exists(os.path.join(od, "all-images", fn))
+                     and np.array_equal(r.data, opener.tile(t.x, t.y)),
+                     f"tile {fn} of {ds} differs from what was served")
+            _require(meta[fn]["bounds_3857"]
+                     == list(WebMercatorQuad.xy_bounds(t)),
+                     f"img_metadata.json bounds of {fn}")
+        n_ann = {}
+        for ds in tilesets.DATASETS:
+            with open(os.path.join(od, f"COCO_{ds}.json")) as f:
+                coco = json.load(f)
+            n_ann[ds] = len(coco["annotations"])
+            _require(all(len(ring) >= 6 and min(ring) >= 0
+                         and max(ring) <= TILE
+                         for a in coco["annotations"]
+                         for ring in a["segmentation"]),
+                     f"COCO_{ds}.json has a ring off the tile")
+        labels_id = pd.read_json(os.path.join(od, "labels_id.json"),
+                                 orient="index")
+        _require(list(labels_id["id"]) == [1, 2]
+                 and list(labels_id["name"]) == ["artificial", "natural"],
+                 f"labels_id.json: {labels_id}")
+
+        cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
+        cfg = replace(cfg, max_iter=TILESET_STEPS, eval_period=10 ** 9,
+                      checkpoint_period=10 ** 9)
+        steps = []
+        step_fn = _counting_steps(training, steps)
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            training.train(cfg, os.path.join(od, "COCO_trn.json"),
+                           os.path.join(od, "trn-images"),
+                           os.path.join(od, "logs"),
+                           max_iter=TILESET_STEPS, batch_size=TB,
+                           image_size=800, max_instances=16, log_every=1,
+                           seed=7, multiscale=True)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = _read_counts()
+        finally:
+            training.train_step = step_fn
+        with open(os.path.join(od, "logs", "metrics.jsonl")) as f:
+            losses = [ln for ln in map(json.loads, f) if "total" in ln]
+    _require(len(losses) == TILESET_STEPS and all(
+        np.isfinite(ln[k]) for ln in losses for k in (
+            "loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg",
+            "loss_mask", "total")), f"losses not finite: {losses}")
+    _require(len(steps) == TILESET_STEPS and all(
+        s["launches"] == {k: STEP_LAUNCHES.get(k, 0) for k in s["launches"]}
+        for s in steps), f"a step's launches differ from {STEP_LAUNCHES}: "
+        f"{[s['launches'] for s in steps]}")
+    n_tiles = len(split)
+    res = {"phase": "tileset_path",
+           "scene": {"grid": GRID, "spacing_m": SPACING, "jitter_m": JITTER,
+                     "aoi_km2": (SCENE_SIDE / 1e3) ** 2,
+                     "segments": 2 * GRID * (GRID - 1)},
+           "reduced": {"aoi_km2": "9 of the reference's ~840 (time)",
+                       "steps": TILESET_STEPS,
+                       "weights": "random (init_params, seed 7)"},
+           "scene_s": scene_s, "label_prep_s": lp_s,
+           "mosaic_s": mosaic_s, "tilesets_s": ts_s,
+           "roads": len(roads), "labels": {"gt": len(gt), "oth": n_oth},
+           "tiles": n_tiles,
+           "tiles_by_dataset": split["dataset"].value_counts().to_dict(),
+           "annotations": n_ann,
+           "tiles_written_per_s": n_tiles / ts_s["fetch"],
+           "train_s": train_s, "steps": steps,
+           "s_per_step": [s["ms"] / 1e3 for s in steps],
+           "losses": losses, "launches": launches,
+           "launches_per_step": STEP_LAUNCHES}
     _emit(res)
     return res
 
@@ -2272,6 +2616,8 @@ def main() -> int:
     runs["host_stage"] = phase_host_stage()
     torch.cuda.empty_cache()
     runs["train_path"] = phase_train_path()
+    torch.cuda.empty_cache()
+    runs["tileset_path"] = phase_tileset_path()
     torch.cuda.empty_cache()
     runs["dp_train"] = phase_dp_train()
     runs["dp_train_run"] = phase_dp_train_run(runs["train_path"])

@@ -167,14 +167,66 @@ def _webmerc_inv(x, y):
     return lon, lat
 
 
-def epsg_code(crs: int) -> int:
-    """The EPSG code ``crs``; raises for a code the port does not
-    transform."""
+def epsg_code(crs) -> int:
+    """The EPSG code of ``crs`` (an int, an "EPSG:<code>" string or a
+    :class:`CRS`); raises for a code the port does not transform."""
+    if isinstance(crs, CRS):
+        return crs.epsg
+    if isinstance(crs, str):
+        crs = crs.upper().replace("EPSG:", "")
     code = int(crs)
     if code not in SUPPORTED:
         raise ValueError(f"unsupported CRS EPSG:{code} (the port transforms "
                          f"only {SUPPORTED})")
     return code
+
+
+class CRS:
+    """A CRS keyed by its EPSG code (the reference's ``crs.CRS``): the
+    value ``GeoSeries`` and ``GeoDataFrame`` carry."""
+
+    _NAMES = {2056: "EPSG:2056", 3857: "EPSG:3857", 4326: "EPSG:4326"}
+
+    def __init__(self, epsg):
+        self.epsg = epsg_code(epsg)
+
+    @classmethod
+    def from_user_input(cls, value) -> "CRS":
+        return cls(value)
+
+    def to_epsg(self) -> int:
+        """pyproj-compatible accessor."""
+        return self.epsg
+
+    def __eq__(self, other):
+        try:
+            return self.epsg == CRS(other).epsg
+        except (TypeError, ValueError):
+            return NotImplemented
+
+    def __hash__(self):
+        return hash(self.epsg)
+
+    def __repr__(self):
+        return self._NAMES[self.epsg]
+
+    __str__ = __repr__
+
+    def to_string(self):
+        return self._NAMES[self.epsg]
+
+    @property
+    def is_geographic(self):
+        return self.epsg == 4326
+
+
+def crs_equal(a, b) -> bool:
+    """Whether two CRS inputs name the same CRS; inputs that are no CRS the
+    port knows compare by their text."""
+    try:
+        return CRS(a) == CRS(b)
+    except (TypeError, ValueError):
+        return str(a) == str(b)
 
 
 def _to_wgs84(epsg: int, x, y):

@@ -7,8 +7,8 @@ consistent side), segments are linked into closed rings, and each hole is
 assigned to its innermost enclosing exterior. RDP then collapses the
 staircases.
 
-``_trace_rings`` is the C++ tracer (``csrc/trace_mask.cpp``), a copy of the
-reference's; only it starts every ring at the reference's vertex and lists
+``_trace_rings`` is the C++ tracer (``geom_trace_mask`` of
+``csrc/geomcore.cpp``), a copy of the reference's; only it starts every ring at the reference's vertex and lists
 the rings in its order, and RDP on a closed ring depends on its start
 vertex, so only it gives the reference's polygons. ``_trace_rings_py`` is the
 plain version: the same ring sets, held equal to the C++ tracer's in a

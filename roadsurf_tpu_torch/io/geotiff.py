@@ -160,10 +160,15 @@ def write_geotiff(path: str, data: np.ndarray, bounds, epsg: int = 3857,
 
 def read_geotiff(path: str) -> Raster:
     with open(path, "rb") as f:
-        buf = f.read()
+        return decode_geotiff(f.read(), path)
+
+
+def decode_geotiff(buf: bytes, name: str = "<bytes>") -> Raster:
+    """A GeoTIFF (or plain TIFF: then the origin is (0, 0), the pixel size
+    1 and the EPSG code 3857) held in ``buf``; ``name`` is for errors."""
     order, magic, ifd_off = struct.unpack_from("<2sHI", buf, 0)
     if order != b"II" or magic != 42:
-        raise ValueError(f"not a little-endian TIFF: {path}")
+        raise ValueError(f"not a little-endian TIFF: {name}")
 
     n = struct.unpack_from("<H", buf, ifd_off)[0]
     tags: dict[int, tuple[int, int, bytes]] = {}

@@ -1,12 +1,14 @@
-"""GeoPackage writer on the stdlib sqlite3, for the detections table.
+"""GeoPackage reader and writer on the stdlib sqlite3.
 
-The reference's ``io/gpkg.py`` ``write_gpkg`` with the same schema and rows:
-the SRS rows, ``gpkg_contents`` (bounds, ``last_change``, srs),
+The reference package's ``io/gpkg.py`` with the same schema and rows: the
+SRS rows, ``gpkg_contents`` (bounds, ``last_change``, srs),
 ``gpkg_geometry_columns``, then one feature table whose rows hold a
 GeoPackage binary blob (GPB header with the envelope + WKB) and the
-attribute columns. The pipeline's later stages read
-``{ds}_detections_at_0dot05_threshold.gpkg`` with ``score`` and
-``det_class``.
+attribute columns. ``write_gpkg`` takes a ``GeoDataFrame`` (columns typed
+from their pandas dtypes, values as the reference converts them) or the
+detection host stage's ``DetectionTable`` (columns typed from their numpy
+dtypes); the pipeline's later stages read
+``{ds}_detections_at_0dot05_threshold.gpkg`` back with ``read_gpkg``.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import sqlite3
 import struct
 
 import numpy as np
+import pandas as pd
 
-from ..geom.table import DetectionTable
+from ..crs import CRS
+from ..geom.table import DetectionTable, GeoDataFrame
 from . import wkb
 
 _SRS_ROWS = [
@@ -41,6 +45,15 @@ def _gpb_header(srs_id: int, bounds) -> bytes:
             + struct.pack("<4d", bounds[0], bounds[2], bounds[1], bounds[3]))
 
 
+def _parse_gpb(blob: bytes):
+    if blob is None or len(blob) < 8 or blob[:2] != b"GP":
+        return None
+    flags = blob[3]
+    env = (flags >> 1) & 0b111
+    env_len = {0: 0, 1: 32, 2: 48, 3: 48, 4: 64}[env]
+    return wkb.loads(blob[8 + env_len:])
+
+
 def _sql_type(col: np.ndarray) -> str:
     if col.dtype.kind in "iu":
         return "INTEGER"
@@ -55,10 +68,46 @@ def _sql_value(v):
     return None if math.isnan(v) else float(v)
 
 
-def write_gpkg(table: DetectionTable, path: str,
+def _frame_type(s: pd.Series) -> str:
+    if pd.api.types.is_integer_dtype(s):
+        return "INTEGER"
+    if pd.api.types.is_float_dtype(s):
+        return "REAL"
+    return "TEXT"
+
+
+def _frame_value(v):
+    if pd.isna(v):
+        return None
+    if isinstance(v, (np.integer,)):
+        return int(v)
+    if isinstance(v, (np.floating,)):
+        return float(v)
+    if isinstance(v, (int, float, str)):
+        return v
+    return str(v)
+
+
+def _columns(table):
+    """(names, SQL types, per-row values, geometries, srs id) of a
+    ``DetectionTable`` or a ``GeoDataFrame``."""
+    cols = [c for c in table.columns if c != "geometry"]
+    if isinstance(table, DetectionTable):
+        data = [getattr(table, c) for c in cols]
+        rows = [[_sql_value(d[i]) for d in data] for i in range(len(table))]
+        return (cols, [_sql_type(d) for d in data], rows,
+                list(table.geometry), table.epsg)
+    rows = [[_frame_value(table.iloc[i][c]) for c in cols]
+            for i in range(len(table))]
+    srs_id = CRS(table.crs).epsg if table.crs is not None else 0
+    return (cols, [_frame_type(table[c]) for c in cols], rows,
+            list(table["geometry"].values), srs_id)
+
+
+def write_gpkg(table: DetectionTable | GeoDataFrame, path: str,
                layer: str | None = None) -> None:
     layer = layer or os.path.splitext(os.path.basename(path))[0]
-    srs_id = table.epsg
+    cols, types, values, geoms, srs_id = _columns(table)
     if os.path.exists(path):
         os.remove(path)
     con = sqlite3.connect(path)
@@ -86,24 +135,21 @@ def write_gpkg(table: DetectionTable, path: str,
             "NULL, CONSTRAINT pk_geom_cols PRIMARY KEY (table_name, "
             "column_name))")
 
-        cols = [c for c in table.columns if c != "geometry"]
-        data = [getattr(table, c) for c in cols]
-        defs = [f'"{c}" {_sql_type(d)}' for c, d in zip(cols, data)]
+        defs = [f'"{c}" {t}' for c, t in zip(cols, types)]
         cur.execute(
             f'CREATE TABLE "{layer}" (fid INTEGER PRIMARY KEY '
             f'AUTOINCREMENT, geom BLOB{", " if defs else ""}'
             f'{", ".join(defs)})')
 
-        geoms = table.geometry
         tb = table.total_bounds if len(table) else (0, 0, 0, 0)
         gtypes = {g.geom_type.upper() for g in geoms if g is not None}
         gtype = gtypes.pop() if len(gtypes) == 1 else "GEOMETRY"
 
         rows = []
-        for i, g in enumerate(geoms):
+        for g, vals in zip(geoms, values):
             blob = (_gpb_header(srs_id, g.bounds) + wkb.dumps(g)
                     if g is not None and not g.is_empty else None)
-            rows.append([blob] + [_sql_value(d[i]) for d in data])
+            rows.append([blob] + vals)
         ph = ",".join(["?"] * (1 + len(cols)))
         colnames = ", ".join(["geom"] + [f'"{c}"' for c in cols])
         cur.executemany(
@@ -120,3 +166,42 @@ def write_gpkg(table: DetectionTable, path: str,
         con.commit()
     finally:
         con.close()
+
+
+def read_gpkg(path: str, layer: str | None = None) -> GeoDataFrame:
+    """The feature layer ``layer`` (the first one when None) as a
+    ``GeoDataFrame`` in its SRS (none when the port does not know it)."""
+    con = sqlite3.connect(path)
+    try:
+        cur = con.cursor()
+        if layer is None:
+            row = cur.execute(
+                "SELECT table_name, srs_id FROM gpkg_geometry_columns "
+                "LIMIT 1").fetchone()
+            if row is None:
+                raise ValueError(f"no feature layer in {path}")
+            layer, srs_id = row
+        else:
+            row = cur.execute(
+                "SELECT srs_id FROM gpkg_geometry_columns WHERE "
+                "table_name=?", (layer,)).fetchone()
+            srs_id = row[0] if row else 0
+        gcol_row = cur.execute(
+            "SELECT column_name FROM gpkg_geometry_columns WHERE "
+            "table_name=?", (layer,)).fetchone()
+        gcol = gcol_row[0] if gcol_row else "geom"
+        info = cur.execute(f'PRAGMA table_info("{layer}")').fetchall()
+        cols = [r[1] for r in info if r[1] not in (gcol, "fid")]
+        sel = ", ".join([f'"{gcol}"'] + [f'"{c}"' for c in cols])
+        data = cur.execute(f'SELECT {sel} FROM "{layer}"').fetchall()
+    finally:
+        con.close()
+    geoms = [_parse_gpb(r[0]) for r in data]
+    table = pd.DataFrame([r[1:] for r in data], columns=cols)
+    gdf = GeoDataFrame(table)
+    gdf["geometry"] = geoms
+    try:
+        gdf.crs = CRS(int(srs_id))
+    except ValueError:
+        gdf.crs = None
+    return gdf

@@ -2,7 +2,7 @@
 
 The reference's training loader resizes tiles with Pillow
 (``Image.resize(..., BILINEAR)`` for images, ``NEAREST`` for the instance
-masks); the card's installation has no Pillow, and the batch must equal
+masks); the port does not depend on Pillow, and the batch must equal
 the reference's byte for byte. These functions repeat what Pillow's C code
 computes (its ``Resample.c`` and the affine nearest-neighbour scale):
 

@@ -11,8 +11,8 @@ config, the detectron2 YAML's model and solver (SGD momentum 0.9, BASE_LR
 0.01, WarmupMultiStepLR, IMS_PER_BATCH 8, checkpoint every
 CHECKPOINT_PERIOD, eval every EVAL_PERIOD), and the reference's loader:
 tiles at native resolution, padded ground truth with full-tile instance
-bitmaps rasterized on the host (``csrc/rasterize.cpp``, a copy of the
-reference's C++ fill), a random flip, then either the multiscale resize to
+bitmaps rasterized on the host (``geom_rasterize`` of ``csrc/geomcore.cpp``,
+a copy of the reference's C++ fill), a random flip, then either the multiscale resize to
 one MIN_SIZE_TRAIN choice per batch or the scale-jitter crop, and a
 background prefetch thread. Every ``eval_period`` steps the validation
 loss and the COCO AP of ``engine/coco_eval.py``; every
