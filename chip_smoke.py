@@ -19,7 +19,10 @@ exits non-zero:
    (``roi_align_blocked``): the parity profile's poolers (B=16, C=256,
    P2..P5 at 800 px; box R=1000 P=7, mask R=100 P=14, adaptive) and the
    box pooler at s=2. Both poolers also in their int8 mode, at the same
-   shapes, on int8 levels quantized from those (one scale a level); beside
+   shapes, on int8 levels quantized from those (one scale a level), and in
+   their float32 mode, on float32 noise of the same draws, not rounded
+   (float32 out, held at <= 1e-5·max|plain| + 1e-6, a tolerance the plain
+   version on the levels rounded to bf16 must fail); beside
    the byte bound each K2 case reports ``box_bytes``, the cells each box
    touches summed over the boxes, and edge batches also cross K2's work
    split (R of 37 and 13, a row wider than a staged chunk, a short last
@@ -44,7 +47,10 @@ exits non-zero:
    every level, zero GT boxes, boxes on and across the borders), each
    launched twice and held bitwise equal (one write a tile, no atomics);
    timed at B=8 beside its plain time and its byte bound, with the
-   histogram of kept boxes per tile and level (``_k5_tiles``).
+   histogram of kept boxes per tile and level (``_k5_tiles``); then again
+   from a float32 d pooled (the float32 profiles' training; float32
+   noise, not rounded), float32 gradients only, where the plain gradient
+   of the d pooled rounded to bf16 must fail the tolerance.
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
    64 random 256 px tiles, the last one short; K1 must have been launched
@@ -123,8 +129,8 @@ exits non-zero:
    ``engine/train.py`` with a group): two gloo ranks sharing cuda:0
    (NCCL takes one rank a device; the card computes, gloo carries the
    collectives) against one rank, the YAML's model at full width in
-   bf16 (K2 and K5 take no float32 levels) with TF32 off, fixed 320 px,
-   a global batch of 4, 2 steps.
+   float32 (K2 and K5 in their float32 modes) with TF32 off, fixed 320
+   px, a global batch of 4, 2 steps.
    Checks: each step's losses within 1e-4 + 1e-3·|ref|, the ranks'
    parameters bitwise equal, a rank's step FLOPs at most 1.35/2 of the
    one-rank step's, every rank's K2 2, K5 2 and K3 1 launches a step.
@@ -135,13 +141,30 @@ exits non-zero:
    engine loads and answers from; host s/step beside train_path's, and
    the loader's seconds a global batch.
 15. ``dp_infer``: the sharded ``TileInferenceEngine`` (every card, or two
-   shards on cuda:0 when there is one), the parity profile in bf16,
+   shards on cuda:0 when there is one), the parity profile in float32,
    B=16: its outputs equal bit for bit to a one-device engine's at the
-   shard's batch size on the same rows, K2 and K3 twice a shard and
-   batch; beside it, the differences of both from the one-device engine
-   at B=16 (bf16, random weights: near-equal scores reorder), and
-   tiles/s of the three.
-16. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
+   shard's batch size on the same rows, K2 (float32) and K3 twice a
+   shard and batch; beside it, the differences of both from the
+   one-device engine at B=16 (random weights: near-equal scores may
+   reorder), and tiles/s of the three.
+16. ``f32_forward``: the fast and the parity profile in float32 (random
+   weights, the CPU tests' narrow heads, TF32 off) through
+   ``forward_inference`` on 4 and 2 tiles, through the kernels (K1; K2
+   and K3) and through their plain versions: valid flags and classes
+   equal, boxes within 1e-4 px, mask logits within 1e-4·max(1,
+   max|logit| / 6.4).
+17. ``quality_path``: the first runs with weights trained on the card.
+   ``tools.learning_smoke`` (500 steps from scratch on synthetic
+   rectangles, 64 px, B=16; gates: the last 50 steps' mean total below
+   0.2x the first step's and below 1.0, at least 12 of 16 instances
+   found; its control, 51 steps with the weights held at their init,
+   must end above 0.2x), then
+   ``tools.quality`` (label preparation, tilesets from a synthetic tile
+   service, 600 training steps at B=8 on 256 px tiles, the validation
+   AP, make_detections with the checkpoint and final metrics under the
+   fast and the exact profile; gate: each profile's balanced F1 at
+   least 0.15 over the baseline's). K1, K3 and K5 must have run.
+18. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
    image (10000² × 4 uint16, EPSG:2056, a nodata border): the host's
    inverse map, the gather (equal to numpy's of the same indices),
    ``band_stats`` (min/max equal, mean/std rtol 1e-5 of float64 numpy),
@@ -177,6 +200,9 @@ INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores (data sheet)
 # weights themselves, and so every sample's border decision, are computed
 # with the same operations in both. A misplaced sample costs ~1e-1.
 REL_TOL, ABS_TOL = 2.0 ** -8, 1e-4
+# float32 levels (K1, K2) and a float32 d pooled (K5): |kernel - plain| <=
+# 1e-5·max|plain| + 1e-6, no output rounding, f32 sums in another order
+F32_REL, F32_ABS = 1e-5, 1e-6
 C = 256
 # fast profile: batch, tile side, poolers (name, R, P)
 B, TILE = 64, 256
@@ -294,8 +320,13 @@ def phase_build() -> dict:
 # K1 and K2: the poolers
 
 def _agreement(got, ref) -> dict:
+    """Agreement of a pooler's output with its plain version's: within one
+    bf16 rounding for bf16 output, within F32_REL of the plain version's
+    largest value for float32 output."""
     err = (got.float() - ref).abs()
-    excess = err - (REL_TOL * ref.abs() + ABS_TOL)
+    tol = F32_REL * float(ref.abs().max()) + F32_ABS \
+        if got.dtype == torch.float32 else REL_TOL * ref.abs() + ABS_TOL
+    excess = err - tol
     return {"max_abs_err": float(err.max()),
             "max_abs_ref": float(ref.abs().max()),
             "out_of_tolerance": int((excess > 0).sum()),
@@ -303,13 +334,14 @@ def _agreement(got, ref) -> dict:
             "finite": bool(torch.isfinite(got.float()).all())}
 
 
-def _pool_inputs(g, R: int, edge: bool):
-    """Fast profile: levels (B, H, W, C) bf16 and boxes (B, R, 4) f32 on
-    the generator's device; the edge batch puts designed boxes first in
+def _pool_inputs(g, R: int, edge: bool, dtype=torch.bfloat16):
+    """Fast profile: levels (B, H, W, C) of ``dtype`` (float32 noise,
+    rounded to bf16 unless float32 is asked for) and boxes (B, R, 4) f32
+    on the generator's device; the edge batch puts designed boxes first in
     every image."""
     dev = g.device
     feats = tuple(torch.randn((B, TILE // st, TILE // st, C), generator=g,
-                              device=dev).to(torch.bfloat16)
+                              device=dev).to(dtype)
                   for st in (4, 8, 16))
     u = torch.rand((B, R, 4), generator=g, device=dev)
     x0, y0 = u[..., 0] * TILE, u[..., 1] * TILE
@@ -342,13 +374,14 @@ def _pool_inputs(g, R: int, edge: bool):
     return feats, boxes.contiguous()
 
 
-def _parity_pool_inputs(g, R: int, edge: bool):
-    """Parity profile: P2..P5 of an 800 px image, bf16, and boxes with
-    log-uniform sides from 2 to 800 px (long thin roads included); the edge
-    batch puts designed boxes first in every image."""
+def _parity_pool_inputs(g, R: int, edge: bool, dtype=torch.bfloat16):
+    """Parity profile: P2..P5 of an 800 px image, of ``dtype`` (as
+    ``_pool_inputs``), and boxes with log-uniform sides from 2 to 800 px
+    (long thin roads included); the edge batch puts designed boxes first
+    in every image."""
     dev = g.device
     feats = tuple(torch.randn((PB, s, s, C), generator=g,
-                              device=dev).to(torch.bfloat16)
+                              device=dev).to(dtype)
                   for s in PLEVELS)
     u = torch.rand((PB, R, 4), generator=g, device=dev)
     x0, y0 = u[..., 0] * PSIDE, u[..., 1] * PSIDE
@@ -397,7 +430,8 @@ def _quantized(feats):
 def _pool_work(feats, boxes, lvl, P: int, s: int):
     """(bytes, FLOPs, box bytes) a pooling call needs: the feature cells
     its boxes' taps touch (each read once, at the levels' element size),
-    boxes and levels read, the bf16 output written; box bytes are the
+    boxes and levels read, the output written (float32 for float32
+    levels, else bf16); box bytes are the
     cells each box touches, summed over the boxes (what a design that
     reads every box's region apart moves, from L2 where boxes overlap).
     FLOPs: the poolers' separable form, for each output bin (p, q) and
@@ -408,7 +442,8 @@ def _pool_work(feats, boxes, lvl, P: int, s: int):
 
     item = feats[0].element_size()
     nbytes = boxes.numel() * 4 + lvl.numel() * 4 \
-        + boxes.shape[0] * boxes.shape[1] * P * P * C * 2
+        + boxes.shape[0] * boxes.shape[1] * P * P * C * (4 if item == 4
+                                                         else 2)
     flops = 0.0
     box_cells = 0
     for b in range(boxes.shape[0]):      # one image at a time: memory
@@ -430,26 +465,42 @@ def _pool_work(feats, boxes, lvl, P: int, s: int):
 
 
 def _pool_case(kernel, plain, feats, boxes, P, s, plain_iters: int,
-               int8: bool, **meta) -> dict:
-    """One pooler call against its plain version, on ``feats`` or, with
-    ``int8``, on int8 levels quantized from them."""
+               mode: str, **meta) -> dict:
+    """One pooler call against its plain version, on ``feats`` (mode
+    "bf16"), on int8 levels quantized from them ("int8") or on float32
+    ``feats`` ("f32"). In float32 the plain version on the levels rounded
+    to bf16 must fall outside the tolerance: the check separates the kernel
+    from one that rounds its float32 levels inside."""
     from roadsurf_tpu_torch.ops.roi_align import level_assignment, \
         reachable_levels
 
     n_lev = reachable_levels(feats)
     lvl = level_assignment(boxes, 224, 4, 2, 2 + n_lev - 1).contiguous()
     scales = None
-    if int8:
+    if mode == "int8":
         feats, scales = _quantized(feats)
+    _require(mode != "f32" or all(f.dtype == torch.float32 for f in feats),
+             f"{mode}: levels of {[f.dtype for f in feats]}")
     got = kernel(feats, boxes, lvl, P, s, feat_scales=scales)
     ref = plain(feats, boxes, lvl, P, s, feat_scales=scales)
     torch.cuda.synchronize()
-    case = {**meta, "mode": "int8" if int8 else "bf16", "R": boxes.shape[1],
+    _require(got.dtype == (torch.float32 if mode == "f32"
+                           else torch.bfloat16), f"{mode}: {got.dtype} out")
+    case = {**meta, "mode": mode, "R": boxes.shape[1],
             "P": P, "sampling": s, "C": C, "B": boxes.shape[0],
             "levels": [f.shape[1] for f in feats],
             "boxes_per_level": torch.bincount(
                 lvl.flatten(), minlength=n_lev).tolist(),
             **_agreement(got, ref)}
+    if mode == "f32":
+        rounded = plain(tuple(f.to(torch.bfloat16).float() for f in feats),
+                        boxes, lvl, P, s)
+        case["bf16_levels_out_of_tolerance"] = \
+            _agreement(rounded, ref)["out_of_tolerance"]
+        del rounded
+        _require(case["bf16_levels_out_of_tolerance"] > 0,
+                 f"{mode}: the tolerance does not separate the plain version"
+                 f" on bf16-rounded levels: {case}")
     del ref
     nbytes, flops, box_bytes = _pool_work(feats, boxes, lvl, P, s)
     case.update(
@@ -463,18 +514,20 @@ def _pool_case(kernel, plain, feats, boxes, P, s, plain_iters: int,
     return case
 
 
-def phase_kernels_k1(int8: bool) -> list:
+def phase_kernels_k1(mode: str = "bf16") -> list:
     from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused, \
         roi_align_fused_ref
 
-    name = "roi_align_int8" if int8 else "roi_align"
+    name = "roi_align" if mode == "bf16" else f"roi_align_{mode}"
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for edge, poolers in ((False, POOLERS), (True, POOLERS + SPLIT)):
         for pooler, R, P in poolers:
-            feats, boxes = _pool_inputs(g, R, edge)
+            feats, boxes = _pool_inputs(
+                g, R, edge,
+                torch.float32 if mode == "f32" else torch.bfloat16)
             case = _pool_case(roi_align_fused, roi_align_fused_ref, feats,
-                              boxes, P, 2, 5, int8, pooler=pooler,
+                              boxes, P, 2, 5, mode, pooler=pooler,
                               edge=edge, main=not edge)
             _require(case["levels"] == [64, 32, 16]
                      and len(case["boxes_per_level"]) == 3,
@@ -486,19 +539,22 @@ def phase_kernels_k1(int8: bool) -> list:
     return cases
 
 
-def phase_kernels_k2(int8: bool) -> list:
+def phase_kernels_k2(mode: str = "bf16") -> list:
     from roadsurf_tpu_torch.ops.roi_align_blocked_kernel import \
         roi_align_fused_blocked, roi_align_fused_blocked_ref
 
-    name = "roi_align_blocked_int8" if int8 else "roi_align_blocked"
+    name = "roi_align_blocked" if mode == "bf16" \
+        else f"roi_align_blocked_{mode}"
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = []
     for edge, poolers in ((False, PPOOLERS), (True, PPOOLERS + PSPLIT)):
         for pooler, R, P, s in poolers:
-            feats, boxes = _parity_pool_inputs(g, R, edge)
+            feats, boxes = _parity_pool_inputs(
+                g, R, edge,
+                torch.float32 if mode == "f32" else torch.bfloat16)
             case = _pool_case(roi_align_fused_blocked,
                               roi_align_fused_blocked_ref, feats, boxes, P,
-                              s, 2, int8, pooler=pooler, edge=edge,
+                              s, 2, mode, pooler=pooler, edge=edge,
                               main=not edge and s == 0)
             torch.cuda.empty_cache()
             _require(len(case["boxes_per_level"]) == 4,
@@ -765,15 +821,17 @@ K5_CHECK_B = 2
 K5_REL, K5_ABS = 1e-5, 1e-6
 
 
-def _k5_inputs(g, Bn: int, side: int, levels, R: int, P: int, edge: bool):
-    """(level shapes, d pooled (Bn, R, P, P, C) bf16, boxes (Bn, R, 4)):
+def _k5_inputs(g, Bn: int, side: int, levels, R: int, P: int, edge: bool,
+               dtype=torch.bfloat16):
+    """(level shapes, d pooled (Bn, R, P, P, C) of ``dtype`` (float32
+    noise, rounded to bf16 unless float32 is asked for), boxes (Bn, R, 4)):
     boxes with log-uniform sides from 2 px to the image side; the edge
     batch puts first in every image boxes on every level, zero (padded GT)
     boxes and boxes on and across the borders."""
     dev = g.device
     shapes = [(Bn, s, s, C) for s in levels]
     dout = torch.randn((Bn, R, P, P, C), generator=g,
-                       device=dev).to(torch.bfloat16)
+                       device=dev).to(dtype)
     u = torch.rand((Bn, R, 4), generator=g, device=dev)
     x0, y0 = u[..., 0] * side, u[..., 1] * side
     w = 2 * (side / 2) ** u[..., 2]
@@ -804,15 +862,18 @@ def _k5_inputs(g, Bn: int, side: int, levels, R: int, P: int, edge: bool):
 
 def _k5_work(dout, shapes, boxes, lvl, P: int, s: int) -> tuple:
     """(bytes, FLOPs) the gradient needs: d pooled and the boxes read once,
-    each level's bf16 gradient written once; FLOPs of the separable form,
+    each level's gradient written once (in d pooled's type: the timed calls
+    write bf16 gradients from a bf16 d pooled, float32 from a float32 one);
+    FLOPs of the separable form,
     per box and channel 2·P per non-zero x-weight (the x-contraction) and 2
     per non-zero y-weight and column of the box's region (the
     y-contraction)."""
     from roadsurf_tpu_torch.ops.roi_align_kernel import axis_weights
 
     grads = sum(int(np.prod(sh)) for sh in shapes)
-    nbytes = dout.numel() * 2 + boxes.numel() * 4 + lvl.numel() * 4 \
-        + grads * 2
+    item = dout.element_size()
+    nbytes = dout.numel() * item + boxes.numel() * 4 + lvl.numel() * 4 \
+        + grads * item
     metas = tuple(torch.empty(sh, device="meta") for sh in shapes)
     flops = 0.0
     for b in range(boxes.shape[0]):
@@ -872,12 +933,16 @@ def _k5_tiles(shapes, boxes, lvl, P: int) -> list:
     return res
 
 
-def phase_kernels_k5() -> list:
+def phase_kernels_k5(f32: bool = False) -> list:
     """K5 against its plain version, f32 gradients compared, at B=2 (and
     its bf16 gradients within one bf16 rounding), each launched twice and
     required bitwise equal; then K5 timed at the training batch, B=8,
     beside its plain time and its bound, with the histogram of kept boxes
-    a tile."""
+    a tile. With ``f32``, a float32 d pooled (the float32 profiles'
+    training; float32 noise, not rounded) and float32 gradients only, and
+    the plain gradient of the d pooled rounded to bf16 must fall outside
+    the tolerance: the check separates K5 from a kernel that rounds its
+    float32 d pooled inside."""
     from roadsurf_tpu_torch.ops.roi_align import level_assignment, \
         reachable_levels
     from roadsurf_tpu_torch.ops.roi_align_backward_kernel import \
@@ -887,8 +952,9 @@ def phase_kernels_k5() -> list:
     cases = []
     for edge in (False, True):
         for name, side, levels, R, P, s, main in K5_CASES:
+            dt = torch.float32 if f32 else torch.bfloat16
             shapes, dout, boxes = _k5_inputs(g, K5_CHECK_B, side, levels, R,
-                                             P, edge)
+                                             P, edge, dt)
             metas = [torch.empty(sh, device="meta") for sh in shapes]
             n_lev = reachable_levels(metas)
             shapes = shapes[:n_lev]
@@ -896,14 +962,17 @@ def phase_kernels_k5() -> list:
                 .contiguous()
             got = roi_align_backward(dout, shapes, boxes, lvl, P, s,
                                      dtype=torch.float32)
-            got16 = roi_align_backward(dout, shapes, boxes, lvl, P, s)
             again = roi_align_backward(dout, shapes, boxes, lvl, P, s,
                                        dtype=torch.float32)
-            again16 = roi_align_backward(dout, shapes, boxes, lvl, P, s)
+            # the bf16 gradients (a float32 d pooled gives float32 only)
+            got16 = [] if f32 else roi_align_backward(dout, shapes, boxes,
+                                                      lvl, P, s)
+            again16 = [] if f32 else roi_align_backward(dout, shapes, boxes,
+                                                        lvl, P, s)
             ref = roi_align_backward_ref(dout, shapes, boxes, lvl, P, s)
             torch.cuda.synchronize()
             err, err16, bad, bad16, top = 0.0, 0.0, 0, 0, 0.0
-            for k, k16, r in zip(got, got16, ref):
+            for k, k16, r in zip(got, got16 or got, ref):
                 tol = K5_REL * float(r.abs().max()) + K5_ABS
                 e = (k - r).abs()
                 e16 = (k16.float() - r).abs()
@@ -912,14 +981,25 @@ def phase_kernels_k5() -> list:
                 top = max(top, float(r.abs().max()))
                 bad += int((e > tol).sum())
                 bad16 += int((e16 > REL_TOL * r.abs() + tol).sum())
+            if f32:
+                rounded = roi_align_backward_ref(
+                    dout.to(torch.bfloat16).float(), shapes, boxes, lvl, P, s)
+                sep = sum(int(((q - r).abs() > K5_REL * float(r.abs().max())
+                               + K5_ABS).sum())
+                          for q, r in zip(rounded, ref))
+                del rounded
             case = {"pooler": name, "edge": edge, "main": main and not edge,
+                    "dout": "f32" if f32 else "bf16",
                     "B_checked": K5_CHECK_B, "R": R, "P": P, "sampling": s,
                     "C": C, "levels": [sh[1] for sh in shapes],
                     "boxes_per_level": torch.bincount(
                         lvl.flatten(), minlength=n_lev).tolist(),
                     "max_abs_err": err, "max_abs_ref": top,
-                    "out_of_tolerance": bad, "max_abs_err_bf16": err16,
-                    "out_of_tolerance_bf16": bad16,
+                    "out_of_tolerance": bad,
+                    # a float32 d pooled has float32 gradients only
+                    **({"bf16_dout_out_of_tolerance": sep} if f32 else
+                       {"max_abs_err_bf16": err16,
+                        "out_of_tolerance_bf16": bad16}),
                     "finite": all(bool(torch.isfinite(k).all())
                                   for k in got),
                     "bitwise_repeatable": all(
@@ -929,7 +1009,8 @@ def phase_kernels_k5() -> list:
             if not edge:
                 # timed at the training batch
                 shapes8, dout8, boxes8 = _k5_inputs(g, TB, side, levels, R,
-                                                    P, False)
+                                                    P, False, dt)
+                out8 = dt
                 shapes8 = shapes8[:n_lev]
                 lvl8 = level_assignment(boxes8, 224, 4, 2,
                                         2 + n_lev - 1).contiguous()
@@ -937,7 +1018,7 @@ def phase_kernels_k5() -> list:
                 case.update(
                     B=TB,
                     ms=_time_ms(lambda: roi_align_backward(
-                        dout8, shapes8, boxes8, lvl8, P, s), 10),
+                        dout8, shapes8, boxes8, lvl8, P, s, dtype=out8), 10),
                     plain_ms=_time_ms(lambda: roi_align_backward_ref(
                         dout8, shapes8, boxes8, lvl8, P, s), 1, warmup=1),
                     library_ms=None,
@@ -945,16 +1026,19 @@ def phase_kernels_k5() -> list:
                     **_bound(nbytes, flops))
                 del dout8
             torch.cuda.empty_cache()
-            _emit({"phase": "kernels", "kernel": "roi_align_backward",
-                   **case})
+            _emit({"phase": "kernels", "kernel": "roi_align_backward"
+                   + ("_f32" if f32 else ""), **case})
             _require(case["finite"] and case["out_of_tolerance"] == 0
-                     and case["out_of_tolerance_bf16"] == 0
-                     and case["bitwise_repeatable"],
+                     and case.get("out_of_tolerance_bf16", 0) == 0
+                     and case["bitwise_repeatable"]
+                     and case.get("bf16_dout_out_of_tolerance", 1) > 0,
                      f"roi_align_backward disagrees with its plain version"
-                     f" or with itself: {case}")
+                     f" or with itself, or its tolerance does not separate a"
+                     f" bf16-rounded d pooled: {case}")
             cases.append(case)
-    _emit({"phase": "kernels", "kernel": "roi_align_backward",
-           "case": "autograd", **_pooler_autograd_check(g)})
+    if not f32:
+        _emit({"phase": "kernels", "kernel": "roi_align_backward",
+               "case": "autograd", **_pooler_autograd_check(g)})
     return cases
 
 
@@ -1245,6 +1329,10 @@ TRAIN_STEPS = 6
 # their backward, K3 once for the RPN's per-level NMS (all five levels in
 # one launch; training selects its proposals with no class NMS)
 STEP_LAUNCHES = {"roi_align_blocked": 2, "roi_align_backward": 2, "nms": 1}
+# the same step of the YAML's model in float32 (dp_train (a)): K2 and K5 in
+# their float32 modes
+STEP_LAUNCHES_F32 = {"roi_align_blocked_f32": 2, "roi_align_backward_f32": 2,
+                     "nms": 1}
 
 
 def _road_polygons(rng, n: int) -> list:
@@ -1889,17 +1977,19 @@ def phase_dp_train() -> dict:
     """dp_train (a): the port's data-parallel training step, two gloo ranks
     on cuda:0 (NCCL refuses two ranks on one device; gloo carries the
     collectives of the CUDA tensors, the card does the compute) against
-    one rank in this process: the YAML's model at full width in bf16 (K2
-    and K5 take bf16 levels; no float32 mode), TF32 off, fixed DP_SIDE
-    px, a global batch of DP_B, DP_STEPS steps. Checks: every step's
-    losses within 1e-4 + 1e-3·|ref|; the two ranks' parameters bitwise
-    equal after the steps; a rank's step FLOPs (FlopCounterMode) at most
-    1.35/2 of the one-rank step's; each rank's launches
-    DP_STEPS·STEP_LAUNCHES."""
+    one rank in this process: the YAML's model at full width in float32
+    (K2 and K5 in their float32 modes), TF32 off, fixed DP_SIDE px, a
+    global batch of DP_B, DP_STEPS steps. Checks: every step's losses
+    within 1e-4 + 1e-3·|ref|; the two ranks' parameters bitwise equal after
+    the steps; a rank's step FLOPs (FlopCounterMode) at most 1.35/2 of the
+    one-rank step's; each rank's launches DP_STEPS·STEP_LAUNCHES_F32."""
+    from dataclasses import replace
+
     from roadsurf_tpu_torch.models.config import from_detectron2_yaml
     from roadsurf_tpu_torch.parallel.dryrun import LOSS_KEYS, compare_ranks
 
-    cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
+    cfg = replace(from_detectron2_yaml(os.path.join(ROOT, YAML)),
+                  compute_dtype="float32")
     case = {"cfg": cfg, "image_size": DP_SIDE,
             "batch": _dp_batch(DP_B, DP_SIDE), "init_seed": 7, "seed": 7,
             "steps": DP_STEPS, "count_flops": True}
@@ -1909,7 +1999,7 @@ def phase_dp_train() -> dict:
         [case], 2, device="cuda", backend="gloo")
     wall = time.perf_counter() - t0
     parent = _read_counts()
-    want = {k: DP_STEPS * STEP_LAUNCHES.get(k, 0) for k in parent}
+    want = {k: DP_STEPS * STEP_LAUNCHES_F32.get(k, 0) for k in parent}
     for who, counts in [("one rank", parent)] + [
             (f"rank {r}", c) for r, c in enumerate(rank_counts)]:
         _require(counts == want, f"dp_train {who}: launches {counts}, "
@@ -1929,7 +2019,7 @@ def phase_dp_train() -> dict:
            "what": "2 gloo ranks sharing cuda:0 (NCCL takes one rank a "
                    "device) vs 1 rank; the card computes, gloo carries "
                    "the collectives",
-           "profile": f"from_detectron2_yaml({YAML!r}), bf16, TF32 off",
+           "profile": f"from_detectron2_yaml({YAML!r}), float32, TF32 off",
            "image_size": DP_SIDE, "global_batch": DP_B, "steps": DP_STEPS,
            "loss_diff_over_tolerance": worst,
            "one_rank_losses": one["metrics"],
@@ -2034,16 +2124,18 @@ def phase_dp_train_run(train_res: dict) -> dict:
 def phase_dp_infer() -> dict:
     """dp_infer: the sharded ``TileInferenceEngine`` (every card, or two
     shards on cuda:0 when there is one card) on the parity profile in
-    bf16 (K2 takes bf16 levels), B=16, bits, random weights; two batches
-    of 16 and a tail of 9 after a warm-up batch; K2 and K3 twice a shard
-    and batch. Checks: its outputs equal, bit for bit, those of a
+    float32 (K2 in its float32 mode), B=16, bits, random weights; two
+    batches of 16 and a tail of 9 after a warm-up batch; K2 and K3 twice a
+    shard and batch. Checks: its outputs equal, bit for bit, those of a
     one-device engine at the shard's batch size fed the same rows (the
     same padded tail). Beside it, the one-device engine at B=16: with
-    random weights every parity slot is valid and the bf16 forward at
-    batch 8 and 16 (other conv algorithms) orders near-equal scores
+    random weights every parity slot is valid and the forward at batch 8
+    and 16 (other conv algorithms) may order near-equal scores
     differently, so the flips of valid flags or classes and the boxes
     beyond rtol 1e-2, atol 0.5 are counted for the sharded and the
     batch-8 engine alike, not required to be 0."""
+    from dataclasses import replace
+
     from roadsurf_tpu_torch.engine import TileInferenceEngine
     from roadsurf_tpu_torch.models.config import from_detectron2_yaml
     from roadsurf_tpu_torch.utils.weights import from_jax_params
@@ -2052,7 +2144,8 @@ def phase_dp_infer() -> dict:
     devices = [f"cuda:{i}" for i in range(n)] if n > 1 \
         else ["cuda:0", "cuda:0"]
     b = PB // len(devices)
-    cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
+    cfg = replace(from_detectron2_yaml(os.path.join(ROOT, YAML)),
+                  compute_dtype="float32")
     state = from_jax_params(_random_tree(cfg, torch.Generator()
                                          .manual_seed(11)))
     rng = np.random.default_rng(4)
@@ -2085,7 +2178,8 @@ def phase_dp_infer() -> dict:
         counts[label] = _read_counts()
         forwards = len(devs) * len(feed)
         want = {k: 0 for k in counts[label]}
-        want.update({"roi_align_blocked": 2 * forwards, "nms": 2 * forwards})
+        want.update({"roi_align_blocked_f32": 2 * forwards,
+                     "nms": 2 * forwards})
         _require(counts[label] == want,
                  f"dp_infer {label}: launches {counts[label]}, want {want}")
         del eng
@@ -2114,7 +2208,7 @@ def phase_dp_infer() -> dict:
                     x["boxes"] - y["boxes"]).max()) for x, y in pairs)}
 
     res = {"phase": "dp_infer", "devices": devices,
-           "profile": f"from_detectron2_yaml({YAML!r}), bf16",
+           "profile": f"from_detectron2_yaml({YAML!r}), float32",
            "batch": PB, "shard": b,
            "tiles": sum(len(x) for x in batches),
            "equal_to_one_device_at_shard_batch": True,
@@ -2124,6 +2218,210 @@ def phase_dp_infer() -> dict:
            "tiles_per_s": tps,
            "launches_by_engine": counts, "launches": counts["sharded"]}
     _emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# float32 forwards
+
+F32_TILES = {"fast": 4, "parity": 2}
+# the CPU parity tests' narrow heads (tests/test_torch_port_parity.py)
+F32_NARROW = {"fpn_channels": 32, "box_fc_dim": 64, "mask_conv_dim": 32}
+# the CPU parity tests' mask-logit tolerance, 1e-4 at their logits, whose
+# largest magnitude is 6.40 (tests/test_torch_port_model.py's forward at 64
+# px; tests/test_torch_float32_checks.py holds this scale to it), kept
+# relative to the logits' scale: these random weights give logits of
+# magnitude ~500, whose f32 ulp is 6e-5
+MASK_ABS, MASK_LOGIT_SCALE = 1e-4, 6.4
+
+
+def _plain_route():
+    """A context in which the poolers and the NMS run their plain versions
+    on CUDA tensors too (K1, K2 and K3 replaced where ``ops/roi_align.py``
+    and ``ops/nms.py`` call them): the route a forward is held against."""
+    import contextlib
+
+    from roadsurf_tpu_torch.ops import nms as tnms
+    from roadsurf_tpu_torch.ops import roi_align as tra
+    from roadsurf_tpu_torch.ops.nms_kernel import nms_keep_mask_ref
+
+    plain = {(tra, "roi_align_fused"): tra.roi_align_fused_ref,
+             (tra, "roi_align_fused_blocked"):
+                 tra.roi_align_fused_blocked_ref,
+             (tnms, "nms_keep_mask"): nms_keep_mask_ref}
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {k: getattr(*k) for k in plain}
+        try:
+            for (mod, name), fn in plain.items():
+                setattr(mod, name, fn)
+            yield
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+
+    return ctx()
+
+
+def phase_f32_forward() -> dict:
+    """The fast and the parity profile in float32 (random weights, the CPU
+    parity tests' narrow heads on the full ResNet-50, TF32 off) through
+    ``forward_inference`` on a few random 256 px tiles, through
+    the kernels (K1, or K2 and K3, in their float32 modes) and through the
+    plain route (``_plain_route``) on the same inputs. Checks, the CPU
+    parity tests' tolerances: valid flags and classes equal, boxes within
+    1e-4 px and mask logits within 1e-4·max(1, max|logit| / 6.4) where
+    valid (1e-4 at the CPU tests' logit magnitudes); the kernels' launches
+    (K1 twice, or K2 twice and K3 twice) in the kernel route, none in the
+    plain one."""
+    from dataclasses import replace
+
+    from roadsurf_tpu_torch.models import fast_profile, forward_inference
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+    from roadsurf_tpu_torch.utils.weights import from_jax_params
+
+    profiles = {
+        "fast": (fast_profile(post_nms_topk=32), {"roi_align_f32": 2}),
+        "parity": (from_detectron2_yaml(os.path.join(ROOT, YAML)),
+                   {"roi_align_blocked_f32": 2, "nms": 2})}
+    res = {"phase": "f32_forward", "launches": None, "profiles": {}}
+    total = None
+    for name, (cfg, expect) in profiles.items():
+        cfg = replace(cfg, compute_dtype="float32", **F32_NARROW)
+        state = from_jax_params(_random_tree(cfg, torch.Generator()
+                                             .manual_seed(3)))
+        tiles = np.random.default_rng(8).integers(
+            0, 255, (F32_TILES[name], TILE, TILE, 3), np.uint8)
+        _reset_counts()
+        got = forward_inference(state, tiles, cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        with _plain_route():
+            ref = forward_inference(state, tiles, cfg, device="cuda")
+        torch.cuda.synchronize()
+        plain_counts = _read_counts()
+        want = {k: expect.get(k, 0) for k in counts}
+        _require(counts == want and plain_counts == want,
+                 f"f32_forward {name}: launches {counts}, then {plain_counts}"
+                 f" with the plain route, want {want}")
+        valid = ref["valid"]
+        box_err = float((got["boxes"] - ref["boxes"]).abs()[valid].max())
+        mask_err = float((got["mask_logits"] - ref["mask_logits"])
+                         .abs()[valid].max())
+        top = float(ref["mask_logits"].abs()[valid].max())
+        mask_tol = MASK_ABS * max(1.0, top / MASK_LOGIT_SCALE)
+        case = {"profile": name, "tiles": F32_TILES[name],
+                "valid": int(valid.sum()),
+                "valid_equal": bool(torch.equal(got["valid"], valid)),
+                "classes_equal": bool(torch.equal(got["classes"],
+                                                  ref["classes"])),
+                "max_box_err_px": box_err, "max_mask_logit_err": mask_err,
+                "max_abs_mask_logit": top, "mask_logit_tol": mask_tol,
+                "max_score_err": float((got["scores"] - ref["scores"])
+                                       .abs()[valid].max()),
+                "launches": counts}
+        res["profiles"][name] = case
+        _require(case["valid_equal"] and case["classes_equal"]
+                 and box_err <= 1e-4 and mask_err <= mask_tol
+                 and int(valid.sum()) > 0,
+                 f"f32_forward {name}: the kernels' forward disagrees with "
+                 f"the plain route: {case}")
+        total = counts if total is None else _sum_counts(total, counts)
+        del state, got, ref
+        torch.cuda.empty_cache()
+    res["launches"] = total
+    _emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the quality path: weights trained on the card
+
+SMOKE_STEPS = 500               # learning smoke (tools/learning_smoke.py)
+CONTROL_STEPS = 51              # its control: the weights held at their init
+QUALITY_ITERS = 600             # the chain's training (tools/quality.py)
+# the gates: the learning smoke's last 50 totals' mean below 0.2x its first
+# total and below 1.0, at least 12 of 16 instances found; each profile's
+# balanced F1 at least 0.15 over the baseline's (far below the reference's
+# 5-seed means, so that seed noise does not trip them: they catch a port
+# that does not learn, or a scoring stage that is wrong). The loss gate
+# lies between the readings of a sound run (the reference's own 500 steps
+# end at 0.144x their first total on the CPU, the port's at 0.142x on the
+# card) and the control, whose ratio must lie above it. The script's
+# docstring has the total fall from ~80 to below 1, but both packages
+# start at ~4.5, so a fall to 0.1x (~0.45) is not reached by either
+SMOKE_LOSS_RATIO, SMOKE_MAX_LOSS = 0.2, 1.0
+SMOKE_MIN_FOUND, F1_OVER_BASELINE = 12, 0.15
+
+
+def phase_quality_path() -> dict:
+    """quality_path: the port's first runs with weights it trained. (1)
+    ``tools.learning_smoke.run``: 500 SGD steps from scratch on synthetic
+    rectangles at 64 px, B=16, then the scoring of 8 test tiles; gates: the
+    mean of the last 50 totals below 0.2x the first step's total and below
+    1.0, at least 12 of the 16 instances found; the same smoke with the
+    weights held at their init (51 steps, base lr 0) must end above 0.2x
+    its first total, so that the gate separates learning from none. (2)
+    ``tools.quality.run`` in a temporary
+    directory under ``_build/``: label preparation, tilesets from the
+    synthetic tile service (hard mode), 600 training steps at B=8 on 256
+    px tiles, the validation tileset's COCO AP, make_detections with the
+    checkpoint and the final metrics under the fast and the exact profile;
+    gate: each profile's "all datasets" balanced F1 at least 0.15 over the
+    baseline's. Both count their launches (training: K1 forward, K5
+    backward; the exact profile: K3); K1, K3 and K5 must each have run."""
+    import tempfile
+
+    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+    from roadsurf_tpu_torch.tools import learning_smoke, quality
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    smoke = learning_smoke.run(steps=SMOKE_STEPS, device="cuda")
+    smoke_s = time.perf_counter() - t0
+    smoke_counts = _read_counts()
+    totals = smoke.pop("totals")
+    first, last50 = totals[0], float(np.mean(totals[-50:]))
+    res = {"phase": "quality_path",
+           "smoke": {**smoke, "wall_s": smoke_s, "first_total": first,
+                     "last50_mean_total": last50,
+                     "launches": smoke_counts}}
+    _require(all(np.isfinite(totals)) and last50 < SMOKE_LOSS_RATIO * first
+             and last50 < SMOKE_MAX_LOSS
+             and smoke["found"] >= SMOKE_MIN_FOUND,
+             f"quality_path: the learning smoke missed its gates "
+             f"(last 50 mean {last50} vs first {first}; found "
+             f"{smoke['found']}): {res['smoke']}")
+    control = learning_smoke.run(steps=CONTROL_STEPS, device="cuda",
+                                 learn=False)["totals"]
+    res["control"] = {"steps": CONTROL_STEPS, "first_total": control[0],
+                      "last50_mean_total": float(np.mean(control[-50:])),
+                      "ratio": float(np.mean(control[-50:])) / control[0]}
+    _require(res["control"]["ratio"] > SMOKE_LOSS_RATIO,
+             f"quality_path: the loss gate does not separate the smoke from "
+             f"its control without learning: {res['control']}")
+    res["smoke"]["ratio"] = last50 / first
+
+    _reset_counts()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as wd:
+        chain = quality.run(wd, iters=QUALITY_ITERS, batch=8, device="cuda")
+    chain_counts = _read_counts()
+    curve = chain.pop("train_curve")
+    res["chain"] = {**chain, "launches": chain_counts,
+                    "train_totals": {ln["iter"]: ln["total"]
+                                     for ln in curve}}
+    res["launches"] = _sum_counts(smoke_counts, chain_counts)
+    _emit(res)
+    for prof in ("fast", "exact"):
+        m = chain[prof]
+        _require(m["balanced_f1_all"] >= m["baseline_f1"] + F1_OVER_BASELINE,
+                 f"quality_path: the {prof} profile's balanced F1 "
+                 f"{m['balanced_f1_all']} is not {F1_OVER_BASELINE} over the "
+                 f"baseline's {m['baseline_f1']}")
+    for k in ("roi_align", "nms", "roi_align_backward"):
+        _require(res["launches"][k] > 0,
+                 f"quality_path: {k} never launched: {res['launches']}")
     return res
 
 
@@ -2334,7 +2632,7 @@ def phase_host_stage():
     import tempfile
 
     from roadsurf_tpu_torch.crs import transform_xy
-    from roadsurf_tpu_torch.geom.table import DetectionTable
+    from roadsurf_tpu_torch.geom.table import GeoDataFrame
     from roadsurf_tpu_torch.io import wkb
     from roadsurf_tpu_torch.models import forward_inference
     from roadsurf_tpu_torch.models.config import from_detectron2_yaml
@@ -2428,12 +2726,15 @@ def phase_host_stage():
         host = _host_profile(lambda: direct.extend(
             r for bi in range(4)
             for r in detections.vectorize_one(dets, bi, bounds[bi])))
-        ref = DetectionTable.from_records(direct, 3857).to_crs(4326)
+        ref = GeoDataFrame({"geometry": [r["geometry"] for r in direct],
+                            "score": [r["score"] for r in direct],
+                            "det_class": [r["det_class"] for r in direct]},
+                           crs="EPSG:3857").to_crs(epsg=4326)
         got = rows[:len(ref)]
         same = len(ref) > 0 and all(
             g[40:] == wkb.dumps(p) and sc == float(s_) and c == int(c_)
-            for (g, sc, c), p, s_, c_ in zip(got, ref.geometry, ref.score,
-                                             ref.det_class))
+            for (g, sc, c), p, s_, c_ in zip(got, ref.geometry.values,
+                                             ref["score"], ref["det_class"]))
         _require(same, f"the first 4 tiles' {len(ref)} records differ from "
                  "the per-image host stage of a direct forward")
         # where the host time goes without the pool: the first batch's
@@ -2560,12 +2861,19 @@ KERNELS = {
     "roi_align_blocked_int8": ("roi_align_blocked.cu",
                                "roi_align_pallas.py:471",
                                "roi_align_blocked_int8"),
+    "roi_align_f32": ("roi_align.cu", "roi_align_pallas.py:638",
+                      "roi_align_f32"),
+    "roi_align_blocked_f32": ("roi_align_blocked.cu",
+                              "roi_align_pallas.py:471",
+                              "roi_align_blocked_f32"),
     "nms": ("nms.cu", "nms_pallas.py:59", "nms"),
     "int8_gemm": ("int8_gemm.cu", "int8_gemm.py:79", "int8_gemm"),
     # no Pallas kernel: the reference takes this gradient from XLA's
     # autodiff of its separable pooler
     "roi_align_backward": ("roi_align_backward.cu", "roi_align.py:318",
                            "roi_align_backward"),
+    "roi_align_backward_f32": ("roi_align_backward.cu", "roi_align.py:318",
+                               "roi_align_backward_f32"),
 }
 
 
@@ -2589,16 +2897,19 @@ def main() -> int:
         timeout=60, check=True).stdout.strip()
     _emit({"phase": "toolchain", **_toolchain(), "card": smi})
     phase_build()
-    cases = {"roi_align": phase_kernels_k1(int8=False),
-             "roi_align_int8": phase_kernels_k1(int8=True),
-             "roi_align_blocked": phase_kernels_k2(int8=False),
-             "roi_align_blocked_int8": phase_kernels_k2(int8=True),
+    cases = {"roi_align": phase_kernels_k1(),
+             "roi_align_int8": phase_kernels_k1("int8"),
+             "roi_align_f32": phase_kernels_k1("f32"),
+             "roi_align_blocked": phase_kernels_k2(),
+             "roi_align_blocked_int8": phase_kernels_k2("int8"),
+             "roi_align_blocked_f32": phase_kernels_k2("f32"),
              # K3's error is the count of keep flags unlike the plain
              # version's
              "nms": [dict(c, max_abs_err=c["mismatches"])
                      for c in phase_kernels_k3()],
              "int8_gemm": phase_kernels_k4(),
-             "roi_align_backward": phase_kernels_k5()}
+             "roi_align_backward": phase_kernels_k5(),
+             "roi_align_backward_f32": phase_kernels_k5(f32=True)}
     runs = {}
     for label in PATHS:
         fn = phase_main_path_parity if "parity" in label \
@@ -2623,6 +2934,10 @@ def main() -> int:
     runs["dp_train_run"] = phase_dp_train_run(runs["train_path"])
     torch.cuda.empty_cache()
     runs["dp_infer"] = phase_dp_infer()
+    torch.cuda.empty_cache()
+    runs["f32_forward"] = phase_f32_forward()
+    torch.cuda.empty_cache()
+    runs["quality_path"] = phase_quality_path()
     torch.cuda.empty_cache()
     phase_cog_path()
 

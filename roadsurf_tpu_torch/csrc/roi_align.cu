@@ -1,6 +1,7 @@
 // Multilevel ROIAlignV2 (aligned=True) at a fixed s x s sampling grid, bf16
 // NHWC features -- or int8 ones with one f32 scale a level -- in, bf16
-// (B, R, P, P, C) out, f32 accumulation.
+// (B, R, P, P, C) out, or float32 features in and float32 out; f32
+// accumulation.
 //
 // Replaces the TPU kernel roi_align_fused (roadsurf_tpu/ops/
 // roi_align_pallas.py:638) in both its modes; the wrapper, the plain
@@ -49,10 +50,10 @@ int roi_align_run(const void* f0, const void* f1, const void* f2,
                   int w2, int h3, int w3, int n_levels, int min_level,
                   const void* scales, const void* boxes, const void* lvl,
                   void* out, int B, int R, int C, int P, int sampling,
-                  int device, void* stream) {
+                  int f32, int device, void* stream) {
   return pooler_run<true>(f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3, w3,
                           n_levels, min_level, scales, boxes, lvl, out, B, R,
-                          C, P, sampling, 1, device, stream);
+                          C, P, sampling, f32, 1, device, stream);
 }
 
 const char* roi_align_error_string(int code) {

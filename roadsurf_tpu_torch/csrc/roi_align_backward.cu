@@ -1,8 +1,9 @@
 // The gradient of multilevel ROIAlignV2 (aligned=True) with respect to the
-// levels: d levels (B, H_l, W_l, C) from d pooled (B, R, P, P, C) bf16, at
-// a fixed s x s grid or adaptive sampling (POOLER_SAMPLING_RATIO 0, n =
-// ceil(bin cells) samples per bin, no cap). Levels' gradients come out in
-// bf16 or float32.
+// levels: d levels (B, H_l, W_l, C) from d pooled (B, R, P, P, C) bf16 or
+// float32, at a fixed s x s grid or adaptive sampling (POOLER_SAMPLING_RATIO
+// 0, n = ceil(bin cells) samples per bin, no cap). Levels' gradients come out
+// in bf16 or float32 from a bf16 d pooled, in float32 from a float32 one (the
+// float32 profiles' training step: K1 and K2 in their float32 mode).
 //
 // The reference package has no TPU kernel for it: its training pools with
 // the XLA separable path and takes this gradient from XLA's autodiff of it
@@ -47,10 +48,10 @@
 //   * Producers and consumers. Two producer warps take the kept boxes in
 //     turn. For a box a producer waits for a free ring slot, issues the
 //     box's d pooled slice dP[b, r, :, :, chunk] as one 2-D tensor copy (P *
-//     P rows of kCC channels, at most kMaxSlotBytes; larger P in parts of
-//     whole bin rows) over dout viewed as (B R P P, C), then evaluates the
-//     box's weights over the tile only into the slot's zeroed tables: each
-//     bin of each axis at the cells of its tap span within the tile's rows
+//     P rows of kCC channels, at most kMaxSlotBytes; larger P, or a float32
+//     d pooled's twice the bytes, in parts of whole bin rows) over dout
+//     viewed as (B R P P, C), then evaluates the box's weights over the
+//     tile only into the slot's zeroed tables: each bin of each axis at the cells of its tap span within the tile's rows
 //     or columns (the cells, and the operations, of fill_weights; the
 //     level's side as the border, never the tile's), the (bin, cell) items
 //     compacted by a warp scan so that the lanes evaluate only those; with
@@ -181,8 +182,9 @@ __device__ __forceinline__ void fill_axis(const Axis& a, int P, int s0,
 
 // Block (image, level, tile, channel chunk): see the note at the top.
 // part_bins: bin rows p a copy holds (P when the whole slice fits a slot);
-// nparts: copies a box.
-template <int kCC, bool kF32>
+// nparts: copies a box. kF32: float32 gradients (else bf16); kDF32: a
+// float32 d pooled (else bf16).
+template <int kCC, bool kF32, bool kDF32>
 __global__ void __launch_bounds__(kBwdThreads, 2)
     roi_align_backward_tile_kernel(const __grid_constant__ CUtensorMap map,
                                    Levels lv, const float* __restrict__ boxes,
@@ -198,7 +200,9 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   // TMA writes to 128-byte aligned shared memory
   unsigned char* smem =
       smem_raw + ((128u - (bulk::smem_addr(smem_raw) & 127u)) & 127u);
-  const int slot_bytes = part_bins * P * kCC * 2;
+  using Elem = typename std::conditional<kDF32, float, __nv_bfloat16>::type;
+  const int slot_bytes =
+      part_bins * P * kCC * static_cast<int>(sizeof(Elem));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRing * slot_bytes);
   uint64_t* empty = full + kRing;
   const int twords = table_words(P, kTW);
@@ -375,8 +379,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
       const int p0 = (j % nparts) * part_bins;
       const int pa = max(pr.x, p0);
       const int pb = min(pr.y, min(P, p0 + part_bins) - 1);
-      const __nv_bfloat16* slice = reinterpret_cast<const __nv_bfloat16*>(
-          smem + s * slot_bytes) + g * kLaneC;
+      const Elem* slice =
+          reinterpret_cast<const Elem*>(smem + s * slot_bytes) + g * kLaneC;
       if (qc.x <= qc.y) {
         for (int p = pa; p <= pb; ++p) {
           const int2 ry = yr[p];
@@ -440,19 +444,19 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
 }
 
 // Launches the kernel of kCC channels a tile that writes `out` in bf16 (or
-// f32) on `stream`.
-template <int kCC, bool kF32>
+// f32) from a bf16 (or f32) d pooled on `stream`.
+template <int kCC, bool kF32, bool kDF32>
 int launch_tile(const CUtensorMap& map, const Levels& lv, long long smem,
                 long long blocks, cudaStream_t stream, const void* boxes,
                 const void* lvl, void* out, int R, int C, int P, int sampling,
                 int per_image, int nchunks, int part_bins, int nparts) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        roi_align_backward_tile_kernel<kCC, kF32>,
+        roi_align_backward_tile_kernel<kCC, kF32, kDF32>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  roi_align_backward_tile_kernel<kCC, kF32>
+  roi_align_backward_tile_kernel<kCC, kF32, kDF32>
       <<<dim3(static_cast<unsigned>(blocks)), kBwdThreads,
          static_cast<size_t>(smem), stream>>>(
           map, lv, static_cast<const float*>(boxes),
@@ -467,15 +471,16 @@ extern "C" {
 
 // Writes the levels' gradients into `out` (level after level, each (B, h_l,
 // w_l, C); float32 when out_f32, else bf16) from d pooled `dout` (B, R, P,
-// P, C) bf16 for the boxes (B, R, 4) f32 XYXY on levels `lvl` (B, R) int32
-// at strides 2^(min_level + l). One launch on `stream`; returns
-// cudaGetLastError() (0 = launched). C a multiple of 8 up to 256, 1 <= P <=
+// P, C), float32 when dout_f32 (then out_f32 too), else bf16, for the boxes
+// (B, R, 4) f32 XYXY on levels `lvl` (B, R) int32 at strides 2^(min_level +
+// l). One launch on `stream`; returns cudaGetLastError() (0 = launched). C a multiple of 8 up to 256, 1 <= P <=
 // 32, 0 <= sampling <= 16 (0: adaptive), out and dout 16-byte aligned, B R P
 // P < 2^31 (checked by the wrapper; here too: cudaErrorInvalidValue).
-int roi_align_backward_run(void* out, int out_f32, int h0, int w0, int h1,
-                           int w1, int h2, int w2, int h3, int w3,
-                           int n_levels, int min_level, const void* boxes,
-                           const void* lvl, const void* dout, int B, int R,
+int roi_align_backward_run(void* out, int out_f32, int dout_f32, int h0,
+                           int w0, int h1, int w1, int h2, int w2, int h3,
+                           int w3, int n_levels, int min_level,
+                           const void* boxes, const void* lvl,
+                           const void* dout, int B, int R,
                            int C, int P, int sampling, int device,
                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -485,8 +490,10 @@ int roi_align_backward_run(void* out, int out_f32, int h0, int w0, int h1,
       C > kMaxC || C % 8 != 0 || B < 1 || R < 1 ||
       static_cast<long long>(B) * R * P * P > 0x7fffffffLL ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(dout) % 16 != 0)
+      reinterpret_cast<uintptr_t>(dout) % 16 != 0 ||
+      (dout_f32 != 0 && out_f32 == 0))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int esize = dout_f32 != 0 ? 4 : 2;  // bytes of a d pooled value
   const int cc = P <= kWideMaxP ? kWideC : kNarrowC;
   const int tw = kConsumers / (cc / kLaneC);
   const int hs[kMaxLevels] = {h0, h1, h2, h3};
@@ -520,28 +527,31 @@ int roi_align_backward_run(void* out, int out_f32, int h0, int w0, int h1,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
 
   // a slot holds whole bin rows of the slice: all P where they fit
-  const int rows = std::min(kMaxCopyRows, kMaxSlotBytes / (cc * 2));
+  const int rows = std::min(kMaxCopyRows, kMaxSlotBytes / (cc * esize));
   const int part_bins = std::max(1, std::min(P, rows / P));
   const int nparts = (P + part_bins - 1) / part_bins;
   const long long smem =
-      128 + kRing * (part_bins * P * cc * 2LL + 16 +
+      128 + kRing * (static_cast<long long>(part_bins) * P * cc * esize + 16 +
                      4LL * table_words(P, tw)) +
       4LL * (kMaxList + (kMaxList + kBwdThreads - 1) / kBwdThreads *
                             (kBwdThreads / 32));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
 
-  // d pooled as (B R P P, C) bf16 rows, copied cc channels by part_bins * P
-  // rows at a time; channels past C read as zeros
+  // d pooled as (B R P P, C) rows, copied cc channels by part_bins * P rows
+  // at a time; channels past C read as zeros
   const bulk::EncodeTiled encode = bulk::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C),
                               static_cast<cuuint64_t>(B) * R * P * P};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C) * esize};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(cc),
                              static_cast<cuuint32_t>(part_bins * P)};
   const cuuint32_t elem[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  if (encode(&map,
+             dout_f32 != 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             2,
              const_cast<void*>(dout), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -550,19 +560,19 @@ int roi_align_backward_run(void* out, int out_f32, int h0, int w0, int h1,
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int per = static_cast<int>(per_image);
+  // (channels a tile, f32 gradients, f32 d pooled): a bf16 d pooled gives
+  // bf16 or f32 gradients, a f32 one f32 gradients
+  auto run = [&](auto launcher) {
+    return launcher(map, lv, smem, blocks, st, boxes, lvl, out, R, C, P,
+                    sampling, per, nchunks, part_bins, nparts);
+  };
   if (cc == kWideC)
-    return out_f32 ? launch_tile<kWideC, true>(
-                         map, lv, smem, blocks, st, boxes, lvl, out, R, C, P,
-                         sampling, per, nchunks, part_bins, nparts)
-                   : launch_tile<kWideC, false>(
-                         map, lv, smem, blocks, st, boxes, lvl, out, R, C, P,
-                         sampling, per, nchunks, part_bins, nparts);
-  return out_f32 ? launch_tile<kNarrowC, true>(
-                       map, lv, smem, blocks, st, boxes, lvl, out, R, C, P,
-                       sampling, per, nchunks, part_bins, nparts)
-                 : launch_tile<kNarrowC, false>(
-                       map, lv, smem, blocks, st, boxes, lvl, out, R, C, P,
-                       sampling, per, nchunks, part_bins, nparts);
+    return dout_f32 ? run(launch_tile<kWideC, true, true>)
+           : out_f32 ? run(launch_tile<kWideC, true, false>)
+                     : run(launch_tile<kWideC, false, false>);
+  return dout_f32 ? run(launch_tile<kNarrowC, true, true>)
+         : out_f32 ? run(launch_tile<kNarrowC, true, false>)
+                   : run(launch_tile<kNarrowC, false, false>);
 }
 
 const char* roi_align_backward_error_string(int code) {

@@ -1,7 +1,8 @@
 // Multilevel ROIAlignV2 (aligned=True) on large maps, adaptive sampling
 // (POOLER_SAMPLING_RATIO 0, n = ceil(bin cells) samples per bin, no cap) or
 // a fixed s x s grid; bf16 NHWC features -- or int8 ones with one f32 scale
-// a level -- in, bf16 (B, R, P, P, C) out, f32 accumulation.
+// a level -- in, bf16 (B, R, P, P, C) out, or float32 features in and
+// float32 out; f32 accumulation.
 //
 // Replaces the TPU kernel roi_align_fused_blocked (roadsurf_tpu/ops/
 // roi_align_pallas.py:471) in both its modes; the wrapper and the plain
@@ -23,10 +24,10 @@ int roi_align_blocked_run(const void* f0, const void* f1, const void* f2,
                           int min_level, const void* scales,
                           const void* boxes, const void* lvl, void* out,
                           int B, int R, int C, int P, int sampling,
-                          int device, void* stream) {
+                          int f32, int device, void* stream) {
   return pooler_run<false>(f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3, w3,
                            n_levels, min_level, scales, boxes, lvl, out, B,
-                           R, C, P, sampling, 0, device, stream);
+                           R, C, P, sampling, f32, 0, device, stream);
 }
 
 const char* roi_align_blocked_error_string(int code) {

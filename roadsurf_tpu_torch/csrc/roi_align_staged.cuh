@@ -2,10 +2,17 @@
 // (aligned=True), adaptive sampling (POOLER_SAMPLING_RATIO 0, n =
 // ceil(bin cells) samples per bin, no cap) or a fixed s x s grid; bf16 NHWC
 // features -- or int8 ones with one f32 scale a level -- in, bf16 (B, R, P,
-// P, C) out, f32 accumulation. roi_align_blocked.cu (K2: large maps and
+// P, C) out, or float32 features in and float32 out; f32 accumulation.
+// roi_align_blocked.cu (K2: large maps and
 // adaptive sampling) and roi_align.cu (K1: fixed sampling on small maps,
 // with kernels specialised at the fast profile's P and s) each include it
 // and export their own entry point.
+//
+// Float32 levels: the reference's XLA path off the TPU (its TPU kernel casts
+// each staged chunk to bf16, roi_align_pallas.py:141; the port's plain
+// versions, which the float32 profiles' parity tests use, do not): chunks
+// staged as f32 cells (a slot holds half the cells of a bf16 one), a lane's
+// 8 channels two 16-byte loads, the same weights and sums, f32 out.
 //
 // Int8 levels: each cell is the bf16 value bf16(q * s_l) of the plain
 // version's dequantized level (one __fmul_rn and one rounding); the scale of
@@ -62,6 +69,8 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -258,6 +267,20 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   }
 }
 
+// A lane's 8 channels of a staged f32 cell.
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+  v[4] = b.x;
+  v[5] = b.y;
+  v[6] = b.z;
+  v[7] = b.w;
+}
+
 // 16 int8 channels dequantized to their bf16 values bf16(q * s): q + 128 in
 // the low byte of 2^23's bits is 2^23 + 128 + q exactly, then one product
 // each, rounded to bf16 two at a time.
@@ -316,19 +339,24 @@ struct Region {
 // With two columns a warp (P = 14) the registers are held to two blocks an
 // SM, which ran faster than one block of more registers.
 // kP > 0 and kS >= 0 fix P and the sampling at compile time (K1's
-// specialisations); 0 and -1 take them from the arguments.
+// specialisations); 0 and -1 take them from the arguments. T: the levels'
+// type (bf16, int8 or float); out is float for float levels, else bf16.
 template <typename T, int QPW, int kP, int kS>
 __global__ void __launch_bounds__(32 * kMaxWarps, QPW == 2 ? 2 : 1)
     roi_align_staged_kernel(Pyramid pyr, const float* __restrict__ scales,
                             const float* __restrict__ boxes,
                             const int* __restrict__ lvl,
-                            __nv_bfloat16* __restrict__ out, int R, int C,
+                            void* __restrict__ out, int R, int C,
                             int P_arg, int sampling_arg, int side) {
   const int P = kP > 0 ? kP : P_arg;
   const int sampling = kS >= 0 ? kS : sampling_arg;
   constexpr int kBand = kMaxWarps / QPW;  // band rows a block holds
   constexpr bool kPair = QPW == 1;        // two rows' x-passes at a time
   constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr bool kF32 = sizeof(T) == 4;
+  // the x-pass's cells: f32 for float levels, else bf16 (int8 cells
+  // dequantized into the work buffer)
+  using Cell = typename std::conditional<kF32, float, __nv_bfloat16>::type;
   constexpr int kSlot = kInt8 ? kStageBytes8 : kStageBytes;  // a copy slot
   // chunks in flight: a bf16 slot is read in place, so the copy into it
   // waits for the next chunk's barrier; an int8 slot is free once its
@@ -494,29 +522,29 @@ __global__ void __launch_bounds__(32 * kMaxWarps, QPW == 2 ? 2 : 1)
     bulk::mbar_wait(&full[c % kStages], (c / kStages) & 1);  // chunk c landed
     const Chunk k = g.chunk(c);
     unsigned char* slot = smem + (c % kStages) * kSlot;
-    // the chunk's bf16 cells: the slot itself, or the work buffer
-    __nv_bfloat16* cells =
-        kInt8 ? work : reinterpret_cast<__nv_bfloat16*>(slot);
-    if (kInt8) {
+    // the chunk's cells: the slot itself, or the work buffer
+    const Cell* cells = reinterpret_cast<const Cell*>(slot);
+    if constexpr (kInt8) {
       // each cell once, 16 channels a thread, once every warp is done
       // with chunk c - 1's cells
       if (c > 0) __syncthreads();
       const uint4* src = reinterpret_cast<const uint4*>(slot);
       const int items = k.nr * k.ncx * C / 16;
       for (int i = threadIdx.x; i < items; i += blockDim.x)
-        dequant16(src[i], scale, cells + 16 * i);
+        dequant16(src[i], scale, work + 16 * i);
+      cells = work;
     }
     // bf16: every warp is done with chunk c - 1's slot; int8: chunk c's
     // cells are all dequantized and its slot is free
     __syncthreads();
     if (threadIdx.x == 0 && c + kAhead < g.chunks) issue(c + kAhead);
     if (!active) continue;
-    const __nv_bfloat16* buf = cells + lane * kLaneC;
+    const Cell* buf = cells + lane * kLaneC;
     // the x-pass of each row for each of the warp's columns, two rows at a
     // time; a row cut into segments carries its sums to its last segment
     int r = 0;
     for (; kPair && r + 1 < k.nr; r += 2) {
-      const __nv_bfloat16* row = buf + (r * k.ncx - k.xs) * C;
+      const Cell* row = buf + (r * k.ncx - k.xs) * C;
 #pragma unroll
       for (int j = 0; j < QPW; ++j) {
         const float* wq = wx + (warp + j * nwarps) * nxt - sx.x;
@@ -537,7 +565,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, QPW == 2 ? 2 : 1)
       ypass(k.y + r + 1, t1);
     }
     for (; r < k.nr; ++r) {
-      const __nv_bfloat16* row = buf + (r * k.ncx - k.xs) * C;
+      const Cell* row = buf + (r * k.ncx - k.xs) * C;
 #pragma unroll
       for (int j = 0; j < QPW; ++j) {
         const float* wq = wx + (warp + j * nwarps) * nxt - sx.x;
@@ -564,6 +592,17 @@ __global__ void __launch_bounds__(32 * kMaxWarps, QPW == 2 ? 2 : 1)
     for (int j = 0; j < QPW; ++j) {
       const int q = warp + j * nwarps;
       if (q >= P) continue;
+      const size_t at =
+          ((static_cast<size_t>(roi) * P + p0 + i) * P + q) * C +
+          lane * kLaneC;
+      if constexpr (kF32) {
+        float4* dst = reinterpret_cast<float4*>(static_cast<float*>(out) + at);
+        dst[0] = make_float4(acc[i][j][0], acc[i][j][1], acc[i][j][2],
+                             acc[i][j][3]);
+        dst[1] = make_float4(acc[i][j][4], acc[i][j][5], acc[i][j][6],
+                             acc[i][j][7]);
+        continue;
+      }
       uint4 o;
       unsigned* ow = reinterpret_cast<unsigned*>(&o);
 #pragma unroll
@@ -572,19 +611,17 @@ __global__ void __launch_bounds__(32 * kMaxWarps, QPW == 2 ? 2 : 1)
             __floats2bfloat162_rn(acc[i][j][2 * e], acc[i][j][2 * e + 1]);
         ow[e] = *reinterpret_cast<const unsigned*>(&h);
       }
-      *reinterpret_cast<uint4*>(
-          out + ((static_cast<size_t>(roi) * P + p0 + i) * P + q) * C +
-          lane * kLaneC) = o;
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + at) = o;
     }
   }
 }
 
 using Kernel = void (*)(Pyramid, const float*, const float*, const int*,
-                       __nv_bfloat16*, int, int, int, int, int);
+                       void*, int, int, int, int, int);
 
 int launch(Kernel kernel, dim3 grid, int threads, long long smem,
            cudaStream_t stream, const Pyramid& pyr, const float* sc,
-           const float* boxes, const int* lvl, __nv_bfloat16* out, int R,
+           const float* boxes, const int* lvl, void* out, int R,
            int C, int P, int sampling, int side) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -614,10 +651,11 @@ Kernel pick(int qpw, int P, int sampling) {
 // The shared launcher of both entry points: checks the arguments and the
 // block's shared memory, picks the kernel and launches it on `stream`;
 // returns cudaGetLastError() (0 = launched). feats: n_levels NHWC levels
-// (B, h_l, w_l, C) at strides 2^(min_level + l), bf16 when `scales` is NULL,
-// else int8 with scales[l] (f32, device) the scale of level l; boxes (B, R,
-// 4) f32 XYXY; lvl (B, R) int32 level index; out (B, R, P, P, C) bf16. C a
-// multiple of 8 (bf16) or 16 (int8) up to 256, level and out pointers
+// (B, h_l, w_l, C) at strides 2^(min_level + l): int8 with scales[l] (f32,
+// device) the scale of level l when `scales` is not NULL, else float32 when
+// f32, else bf16; boxes (B, R, 4) f32 XYXY; lvl (B, R) int32 level index;
+// out (B, R, P, P, C) float32 for float32 levels, else bf16. C a multiple of
+// 8 (bf16, float32) or 16 (int8) up to 256, level and out pointers
 // 16-byte aligned, min_sampling <= sampling <= 16 (0: adaptive), 1 <= P <=
 // 32 (checked by the wrappers). A block's shared memory (the ring, and
 // weight tables of P + band + 1 rows of the longest level side) is checked
@@ -627,14 +665,15 @@ int pooler_run(const void* f0, const void* f1, const void* f2,
                const void* f3, int h0, int w0, int h1, int w1, int h2,
                int w2, int h3, int w3, int n_levels, int min_level,
                const void* scales, const void* boxes, const void* lvl,
-               void* out, int B, int R, int C, int P, int sampling,
+               void* out, int B, int R, int C, int P, int sampling, int f32,
                int min_sampling, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* sc = static_cast<const float*>(scales);
   if (n_levels < 1 || n_levels > kMaxLevels || sampling < min_sampling ||
       sampling > kMaxSampling || P < 1 || P > kMaxOut || C < 1 ||
-      C > kMaxC || C % (sc == nullptr ? 8 : 16) != 0 || B < 1 || R < 1)
+      C > kMaxC || C % (sc == nullptr ? 8 : 16) != 0 || B < 1 || R < 1 ||
+      (f32 != 0 && sc != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Pyramid pyr;
   const void* fs[kMaxLevels] = {f0, f1, f2, f3};
@@ -666,13 +705,13 @@ int pooler_run(const void* f0, const void* f1, const void* f2,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
   const Kernel kernel =
-      sc == nullptr ? pick<__nv_bfloat16, kSpecialise>(qpw, P, sampling)
-                    : pick<int8_t, kSpecialise>(qpw, P, sampling);
+      sc != nullptr ? pick<int8_t, kSpecialise>(qpw, P, sampling)
+      : f32 != 0    ? pick<float, kSpecialise>(qpw, P, sampling)
+                    : pick<__nv_bfloat16, kSpecialise>(qpw, P, sampling);
   return launch(kernel, grid, 32 * warps, smem,
                 static_cast<cudaStream_t>(stream), pyr, sc,
                 static_cast<const float*>(boxes),
-                static_cast<const int*>(lvl),
-                static_cast<__nv_bfloat16*>(out), R, C, P, sampling, side);
+                static_cast<const int*>(lvl), out, R, C, P, sampling, side);
 }
 
 }  // namespace

@@ -5,15 +5,13 @@ SRS rows, ``gpkg_contents`` (bounds, ``last_change``, srs),
 ``gpkg_geometry_columns``, then one feature table whose rows hold a
 GeoPackage binary blob (GPB header with the envelope + WKB) and the
 attribute columns. ``write_gpkg`` takes a ``GeoDataFrame`` (columns typed
-from their pandas dtypes, values as the reference converts them) or the
-detection host stage's ``DetectionTable`` (columns typed from their numpy
-dtypes); the pipeline's later stages read
-``{ds}_detections_at_0dot05_threshold.gpkg`` back with ``read_gpkg``.
+from their pandas dtypes, values as the reference converts them); the
+pipeline's later stages read ``{ds}_detections_at_0dot05_threshold.gpkg``
+back with ``read_gpkg``.
 """
 
 from __future__ import annotations
 
-import math
 import os
 import sqlite3
 import struct
@@ -22,7 +20,7 @@ import numpy as np
 import pandas as pd
 
 from ..crs import CRS
-from ..geom.table import DetectionTable, GeoDataFrame
+from ..geom.table import GeoDataFrame
 from . import wkb
 
 _SRS_ROWS = [
@@ -54,20 +52,6 @@ def _parse_gpb(blob: bytes):
     return wkb.loads(blob[8 + env_len:])
 
 
-def _sql_type(col: np.ndarray) -> str:
-    if col.dtype.kind in "iu":
-        return "INTEGER"
-    if col.dtype.kind == "f":
-        return "REAL"
-    return "TEXT"
-
-
-def _sql_value(v):
-    if isinstance(v, np.integer):
-        return int(v)
-    return None if math.isnan(v) else float(v)
-
-
 def _frame_type(s: pd.Series) -> str:
     if pd.api.types.is_integer_dtype(s):
         return "INTEGER"
@@ -88,15 +72,10 @@ def _frame_value(v):
     return str(v)
 
 
-def _columns(table):
+def _columns(table: GeoDataFrame):
     """(names, SQL types, per-row values, geometries, srs id) of a
-    ``DetectionTable`` or a ``GeoDataFrame``."""
+    ``GeoDataFrame``."""
     cols = [c for c in table.columns if c != "geometry"]
-    if isinstance(table, DetectionTable):
-        data = [getattr(table, c) for c in cols]
-        rows = [[_sql_value(d[i]) for d in data] for i in range(len(table))]
-        return (cols, [_sql_type(d) for d in data], rows,
-                list(table.geometry), table.epsg)
     rows = [[_frame_value(table.iloc[i][c]) for c in cols]
             for i in range(len(table))]
     srs_id = CRS(table.crs).epsg if table.crs is not None else 0
@@ -104,7 +83,7 @@ def _columns(table):
             list(table["geometry"].values), srs_id)
 
 
-def write_gpkg(table: DetectionTable | GeoDataFrame, path: str,
+def write_gpkg(table: GeoDataFrame, path: str,
                layer: str | None = None) -> None:
     layer = layer or os.path.splitext(os.path.basename(path))[0]
     cols, types, values, geoms, srs_id = _columns(table)

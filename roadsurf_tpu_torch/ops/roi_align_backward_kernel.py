@@ -24,7 +24,10 @@ whose region overlaps the tile; two producer warps take each kept box's
 d pooled slice through TMA and evaluate its weights over the tile only,
 eight consumer warps sum the boxes' contributions in f32 registers in
 ascending box order, and the block writes the tile once, in bf16 or
-float32. No memset, no accumulator, no atomics: the result is bitwise the
+float32. d pooled comes in bf16 (the bf16 and int8 profiles' training) or
+in float32 (the float32 profiles', whose forward runs K1 and K2 in their
+float32 mode; then the gradients are float32 too). No memset, no
+accumulator, no atomics: the result is bitwise the
 same from run to run. The tile's sizes are read from the source
 (``KERNEL``), so that the CPU tests' mirror of the kernel's tiles and sums
 uses the kernel's own.
@@ -97,23 +100,23 @@ def roi_align_backward_ref(dout, shapes, boxes, lvl, out_size: int,
 def _library() -> ctypes.CDLL:
     lib = cuda_build.library("roi_align_backward")
     lib.roi_align_backward_run.argtypes = (
-        [ctypes.c_void_p] + [ctypes.c_int] * (2 * MAX_LEVELS + 3)
+        [ctypes.c_void_p] + [ctypes.c_int] * (2 * MAX_LEVELS + 4)
         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.roi_align_backward_run.restype = ctypes.c_int
     return lib
 
 
-def part_bins(out_size: int) -> int:
+def part_bins(out_size: int, esize: int = 2) -> int:
     """Bin rows p of a box's d pooled slice that one tensor copy holds:
     whole bin rows of at most TMA's 256-row box side and of a ring slot's
-    bytes."""
+    bytes, for d pooled values of ``esize`` bytes (2: bf16, 4: float32)."""
     k = KERNEL
     rows = min(k["kMaxCopyRows"], k["kMaxSlotBytes"] // (chunk_c(out_size)
-                                                         * 2))
+                                                         * esize))
     return max(1, min(out_size, rows // out_size))
 
 
-def smem_bytes(out_size: int) -> int:
+def smem_bytes(out_size: int, esize: int = 2) -> int:
     """Shared memory a block takes (``roi_align_backward_run`` computes the
     same sum): the 128-byte alignment; per ring slot the d pooled slice,
     its two barriers and its weight tables over the tile (each bin's rows
@@ -121,7 +124,7 @@ def smem_bytes(out_size: int) -> int:
     column's range of bins); the culled box list and the warps' counts. It
     does not depend on the levels' sides."""
     k, P = KERNEL, out_size
-    slot = part_bins(P) * P * chunk_c(P) * 2
+    slot = part_bins(P, esize) * P * chunk_c(P) * esize
     tw = tile_w(P)
     table = (P * (TILE_H + tw + 2) + 2 + 2 * tw + 3) // 4 * 4
     threads = k["kBwdThreads"]
@@ -148,10 +151,14 @@ def _check(dout, shapes, boxes, lvl, out_size, sampling, dtype):
                          f"sampling={sampling}")
     dev = boxes.device
     if dout.shape != (B, R, out_size, out_size, C) \
-            or dout.dtype != torch.bfloat16 or dout.device != dev \
-            or not dout.is_contiguous() or dout.data_ptr() % 16:
-        raise ValueError("dout must be contiguous bf16 (B, R, P, P, C) on "
-                         "the boxes' device, 16-byte aligned")
+            or dout.dtype not in (torch.bfloat16, torch.float32) \
+            or dout.device != dev or not dout.is_contiguous() \
+            or dout.data_ptr() % 16:
+        raise ValueError("dout must be contiguous bf16 or float32 (B, R, P,"
+                         " P, C) on the boxes' device, 16-byte aligned")
+    if dout.dtype == torch.float32 and dtype != torch.float32:
+        raise ValueError("a float32 dout gives float32 level gradients, "
+                         f"not {dtype}")
     if boxes.shape != (B, R, 4) or boxes.dtype != torch.float32 \
             or not boxes.is_contiguous():
         raise ValueError("boxes must be contiguous float32 (B, R, 4)")
@@ -171,9 +178,10 @@ def roi_align_backward(dout, shapes, boxes, lvl, out_size: int,
                        dtype=torch.bfloat16) -> list:
     """d levels in ``dtype`` ((B, H_l, W_l, C) each, for levels of
     ``shapes``) from d pooled ``dout`` (B, R, P, P, C); boxes (B, R, 4)
-    f32 XYXY, lvl (B, R) int32. Launches the kernel for CUDA tensors (bf16
-    ``dout``; it writes the gradients in ``dtype``, bf16 or float32) and
-    runs the plain version for CPU tensors."""
+    f32 XYXY, lvl (B, R) int32. Launches the kernel for CUDA tensors (a
+    bf16 ``dout``, gradients in ``dtype``, bf16 or float32; or a float32
+    ``dout`` and float32 gradients) and runs the plain version for CPU
+    tensors."""
     shapes = [tuple(int(d) for d in s) for s in shapes]
     if boxes.device.type == "cpu":
         return [g.to(dtype) for g in roi_align_backward_ref(
@@ -190,13 +198,19 @@ def roi_align_backward(dout, shapes, boxes, lvl, out_size: int,
     for li in range(MAX_LEVELS):
         dims += list(shapes[li][1:3]) if li < len(shapes) else [0, 0]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    f32_in = dout.dtype == torch.float32
     rc = _library().roi_align_backward_run(
-        out.data_ptr(), int(dtype == torch.float32), *dims, len(shapes),
+        out.data_ptr(), int(dtype == torch.float32), int(f32_in), *dims,
+        len(shapes),
         min_level, boxes.data_ptr(), lvl.data_ptr(), dout.data_ptr(), B, R,
         shapes[0][-1], out_size, sampling, dev.index, stream)
     cuda_build.check("roi_align_backward", rc, "roi_align_backward")
-    roi_align_backward.launches += 1
+    if f32_in:
+        roi_align_backward.launches_f32 += 1
+    else:
+        roi_align_backward.launches += 1
     return [part.view(s) for part, s in zip(out.split(sizes), shapes)]
 
 
 roi_align_backward.launches = 0
+roi_align_backward.launches_f32 = 0

@@ -4,7 +4,9 @@ sampling: the Hopper kernel's wrapper and its plain PyTorch version.
 Replaces the TPU kernel ``roi_align_fused_blocked`` of the reference
 package (roadsurf_tpu/ops/roi_align_pallas.py:471) in both its modes, bf16
 levels and int8 pyramid levels with per-level scales (each tap the bf16
-value ``bf16(q · s_l)``, as for K1 in ``roi_align_kernel.py``), and in both
+value ``bf16(q · s_l)``, as for K1 in ``roi_align_kernel.py``), and in
+float32 (float32 levels and out, the reference's XLA path off the TPU, as
+for K1), and in both
 sampling modes: the adaptive one (``sampling == 0``,
 POOLER_SAMPLING_RATIO 0: n = ceil(bin cells) samples per bin, no cap) and
 a fixed s×s grid. The kernel source is ``csrc/roi_align_blocked.cu``,
@@ -97,8 +99,9 @@ def roi_align_fused_blocked(feats, boxes, lvl, out_size: int, sampling: int,
                             ) -> torch.Tensor:
     """Pool (B, R, P, P, C) from NHWC levels; same arguments as
     :func:`roi_align_fused_blocked_ref`. Launches the kernel for CUDA
-    tensors (bf16 levels, or int8 levels with ``feat_scales``; bf16 out)
-    and runs the plain version for CPU tensors (``plain_on_cpu``)."""
+    tensors (bf16 levels, or int8 levels with ``feat_scales``, bf16 out;
+    float32 levels, float32 out) and runs the plain version for CPU tensors
+    (``plain_on_cpu``)."""
     if boxes.device.type == "cpu":
         return plain_on_cpu(roi_align_fused_blocked_ref, feats, boxes, lvl,
                             out_size, sampling, min_level, feat_scales)
@@ -112,3 +115,4 @@ def roi_align_fused_blocked(feats, boxes, lvl, out_size: int, sampling: int,
 
 roi_align_fused_blocked.launches = 0
 roi_align_fused_blocked.launches_int8 = 0
+roi_align_fused_blocked.launches_f32 = 0

@@ -3,7 +3,10 @@ PyTorch version.
 
 Replaces the TPU kernel ``roi_align_fused`` of the reference package
 (roadsurf_tpu/ops/roi_align_pallas.py:638) in both its modes: bf16 levels,
-and int8 pyramid levels with one float32 scale a level (``feat_scales``).
+and int8 pyramid levels with one float32 scale a level (``feat_scales``);
+and float32 levels, float32 out, as the reference's XLA path pools off the
+TPU (its TPU kernel casts each staged chunk to bf16,
+roi_align_pallas.py:141), so that the float32 profiles run on the card.
 The kernel source is ``csrc/roi_align.cu``: CUDA C++ for ``sm_90a``,
 compiled by ``nvcc`` into a shared library with a plain C interface at
 first use (into ``_build/``, keyed by the source's hash) and loaded with
@@ -15,7 +18,9 @@ roi_align.py:530-537), pooled in float32. The TPU kernel folds the scale
 into its f32 weights instead, which moves pooled values by up to 2⁻⁹
 relative; FC1 re-quantizes them, so int8 values would flip. The kernel
 copies int8 cells, half the bytes of the bf16 mode, converts each staged
-cell once, and writes bf16 in both modes.
+cell once, and writes bf16 in both modes. Float32 levels are staged as
+float32 cells, twice the bytes of bf16 ones, with the same weights and
+sums.
 
 What bounds it on an H100: bytes and their latency. Each output value is
 a weighted sum of s²·4 bf16 taps, 32 FLOPs at s = 2, against its own
@@ -40,7 +45,7 @@ t1 relayout copies, image grouping, the touch bitmap) were workarounds for
 its memory hierarchy and matrix unit and have no counterpart here.
 
 Both wrappers take what the shared kernel takes: 16-byte aligned levels, a
-channel count up to 256 that is a multiple of 8 (bf16) or 16 (int8
+channel count up to 256 that is a multiple of 8 (bf16, float32) or 16 (int8
 levels), out_size up to ``MAX_OUT``, and a staging ring and weight tables
 that fit a block's shared memory (``check_staged_layout``, with the layout
 constants read from the kernel source, ``KERNEL``), so that a layout is
@@ -206,11 +211,12 @@ def roi_align_fused_ref(feats, boxes, lvl, out_size: int, sampling: int,
 
 
 # the C interface of csrc/roi_align.cu and csrc/roi_align_blocked.cu: level
-# pointers, level sides, n_levels, min_level, scales (NULL: bf16 levels),
-# boxes, lvl, out, B, R, C, P, sampling, device, stream
+# pointers, level sides, n_levels, min_level, scales (NULL: bf16 or float32
+# levels), boxes, lvl, out, B, R, C, P, sampling, f32 (float32 levels and
+# out), device, stream
 POOLER_ARGTYPES = ([ctypes.c_void_p] * MAX_LEVELS
                    + [ctypes.c_int] * (2 * MAX_LEVELS + 2)
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
 
 
@@ -224,22 +230,24 @@ def _library() -> ctypes.CDLL:
 
 def check_pooler_inputs(feats, boxes, lvl, feat_scales=None):
     """The checks both pooler kernels (K1 here, K2 in
-    ``roi_align_blocked_kernel.py``) make of their inputs: bf16 levels, or
-    int8 levels with ``feat_scales``."""
+    ``roi_align_blocked_kernel.py``) make of their inputs: bf16 or float32
+    levels, or int8 levels with ``feat_scales``."""
     if not 1 <= len(feats) <= MAX_LEVELS:
         raise ValueError(f"1..{MAX_LEVELS} levels expected, got {len(feats)}")
     B, R = boxes.shape[:2]
     C = feats[0].shape[-1]
     dev = boxes.device
-    want = torch.bfloat16 if feat_scales is None else torch.int8
+    want = (torch.bfloat16, torch.float32) if feat_scales is None \
+        else (torch.int8,)
     for f in feats:
         if f.dim() != 4 or f.shape[0] != B or f.shape[-1] != C:
             raise ValueError(f"level shape {tuple(f.shape)} does not match "
                              f"(B={B}, H, W, C={C})")
-        if f.dtype != want:
-            raise TypeError(f"levels must be {want} when feat_scales is "
+        if f.dtype not in want or f.dtype != feats[0].dtype:
+            raise TypeError(f"levels must be one of {want} (all alike) "
+                            f"when feat_scales is "
                             f"{feat_scales is None and 'None' or 'given'}, "
-                            f"got {f.dtype}")
+                            f"got {[g.dtype for g in feats]}")
         if f.device != dev or not f.is_contiguous() \
                 or f.data_ptr() % 4:
             raise ValueError("levels must be contiguous NHWC on the boxes' "
@@ -300,13 +308,17 @@ def check_staged_layout(feats, out_size: int, feat_scales=None):
 def launch_pooler(wrapper, name: str, entry, feats, boxes, lvl,
                   out_size: int, sampling: int, min_level: int,
                   feat_scales=None):
-    """Allocate the (B, R, P, P, C) bf16 output and launch ``entry`` of
-    ``csrc/<name>.cu`` (``POOLER_ARGTYPES``) on the current stream; raise
-    if the launch failed, else count it on ``wrapper`` (``launches`` for
-    bf16 levels, ``launches_int8`` for int8 ones). Inputs checked."""
+    """Allocate the (B, R, P, P, C) output (float32 for float32 levels,
+    else bf16) and launch ``entry`` of ``csrc/<name>.cu``
+    (``POOLER_ARGTYPES``) on the current stream; raise if the launch failed,
+    else count it on ``wrapper`` (``launches`` for bf16 levels,
+    ``launches_int8`` for int8 ones, ``launches_f32`` for float32 ones).
+    Inputs checked."""
     B, R = boxes.shape[:2]
     C = feats[0].shape[-1]
-    out = torch.empty((B, R, out_size, out_size, C), dtype=torch.bfloat16,
+    f32 = feats[0].dtype == torch.float32
+    out = torch.empty((B, R, out_size, out_size, C),
+                      dtype=torch.float32 if f32 else torch.bfloat16,
                       device=boxes.device)
     if out.numel() == 0:
         return out
@@ -319,12 +331,14 @@ def launch_pooler(wrapper, name: str, entry, feats, boxes, lvl,
     scales = None if feat_scales is None else feat_scales.data_ptr()
     rc = entry(*ptrs, *dims, n, min_level, scales, boxes.data_ptr(),
                lvl.data_ptr(), out.data_ptr(), B, R, C, out_size, sampling,
-               boxes.device.index, stream)
+               int(f32), boxes.device.index, stream)
     cuda_build.check(name, rc, name)
-    if feat_scales is None:
-        wrapper.launches += 1
-    else:
+    if feat_scales is not None:
         wrapper.launches_int8 += 1
+    elif f32:
+        wrapper.launches_f32 += 1
+    else:
+        wrapper.launches += 1
     return out
 
 
@@ -348,8 +362,9 @@ def roi_align_fused(feats, boxes, lvl, out_size: int, sampling: int,
                     min_level: int = 2, feat_scales=None) -> torch.Tensor:
     """Pool (B, R, P, P, C) from NHWC levels; same arguments as
     :func:`roi_align_fused_ref`. Launches the kernel for CUDA tensors (bf16
-    levels, or int8 levels with ``feat_scales``; bf16 out) and runs the
-    plain version for CPU tensors (:func:`plain_on_cpu`)."""
+    levels, or int8 levels with ``feat_scales``, bf16 out; float32 levels,
+    float32 out) and runs the plain version for CPU tensors
+    (:func:`plain_on_cpu`)."""
     if boxes.device.type == "cpu":
         return plain_on_cpu(roi_align_fused_ref, feats, boxes, lvl, out_size,
                             sampling, min_level, feat_scales)
@@ -363,3 +378,4 @@ def roi_align_fused(feats, boxes, lvl, out_size: int, sampling: int,
 
 roi_align_fused.launches = 0
 roi_align_fused.launches_int8 = 0
+roi_align_fused.launches_f32 = 0

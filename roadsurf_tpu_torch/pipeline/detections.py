@@ -44,7 +44,7 @@ from time import perf_counter
 import numpy as np
 import torch
 
-from ..geom.table import DetectionTable
+from ..geom.table import GeoDataFrame
 from ..geom.vectorize import mask_to_polygons
 from ..io.geotiff import read_geotiff
 from ..io.gpkg import write_gpkg
@@ -256,16 +256,26 @@ def detect_tiles(state: dict, cfg: ModelConfig, image_paths: list[str],
 
 def detect_dataset(state: dict, cfg: ModelConfig, coco: dict,
                    images_dir: str, img_metadata: dict,
-                   **kw) -> DetectionTable:
-    """Detect over one dataset's COCO images; returns detections in 3857
-    (no records: the reference's empty frame, object columns)."""
+                   **kw) -> GeoDataFrame:
+    """Detect over one dataset's COCO images; returns detections in
+    EPSG:3857, columns ``geometry``, ``score`` (float64) and ``det_class``
+    (int64), as the reference does (no records: its empty frame, whose
+    columns pandas makes float64)."""
     paths, bounds = [], []
     for im in coco["images"]:
         meta = img_metadata[im["file_name"]]
         paths.append(os.path.join(images_dir, im["file_name"]))
         bounds.append(meta["bounds_3857"])
     records = detect_tiles(state, cfg, paths, bounds, **kw)
-    return DetectionTable.from_records(records, 3857)
+    if not records:
+        return GeoDataFrame({"geometry": [], "score": [], "det_class": []},
+                            crs="EPSG:3857")
+    return GeoDataFrame(
+        {"geometry": [r["geometry"] for r in records],
+         "score": np.array([r["score"] for r in records], np.float64),
+         "det_class": np.array([r["det_class"] for r in records],
+                               np.int64)},
+        crs="EPSG:3857")
 
 
 def run(cfg: dict, model_cfg: ModelConfig | None = None,
@@ -321,16 +331,16 @@ def run(cfg: dict, model_cfg: ModelConfig | None = None,
         with open(coco_path) as f:
             coco = json.load(f)
         images_dir = os.path.join(wd, f"{ds}-images")
-        table = detect_dataset(state, model_cfg, coco, images_dir, img_meta,
-                               batch_size=batch_size,
-                               score_thresh=score_thresh, rdp_eps=rdp_eps,
-                               mask_format=mask_format, device=device,
-                               n_devices=n_devices, stats=stats)
-        table_4326 = table.to_crs(4326) if len(table) else table
+        gdf = detect_dataset(state, model_cfg, coco, images_dir, img_meta,
+                             batch_size=batch_size,
+                             score_thresh=score_thresh, rdp_eps=rdp_eps,
+                             mask_format=mask_format, device=device,
+                             n_devices=n_devices, stats=stats)
+        gdf_4326 = gdf.to_crs(epsg=4326) if len(gdf) else gdf
         p = os.path.join(wd, f"{ds}_detections_at_{thr_tag}_threshold.gpkg")
-        write_gpkg(table_4326, p, layer=f"{ds}_detections")
+        write_gpkg(gdf_4326, p, layer=f"{ds}_detections")
         manifest.add(p)
-        logger.info(f"{ds}: {len(table)} detections")
+        logger.info(f"{ds}: {len(gdf)} detections")
 
     manifest.log()
     return manifest.files

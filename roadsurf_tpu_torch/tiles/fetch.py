@@ -4,9 +4,12 @@ georeferenced GeoTIFFs (a copy of the reference package's
 with a skip-if-exists cache on disk, and fail-fast on the first error.
 
 The reference decodes every tile with Pillow. The port decodes PNG itself
-(zlib and numpy: 8-bit gray, gray+alpha, RGB and RGBA, all five row
-filters) and TIFF through its own GeoTIFF reader, so those tiles need no
-Pillow; only JPEG goes to Pillow, imported when a JPEG arrives.
+(zlib and numpy: non-interlaced 8-bit gray, gray+alpha, RGB and RGBA, all
+five row filters, equal to Pillow's decode byte for byte) and TIFF through
+its own GeoTIFF reader, so those tiles need no Pillow; every other PNG
+(interlaced, palette, other bit depths) and JPEG go to Pillow, imported
+when such a tile arrives, so the port decodes every tile the reference
+decodes, to the same array.
 
 ``TileFetcher`` takes http(s):// and file:// templates and an ``opener``
 (``bytes = opener(url)``) in place of the HTTP opener.
@@ -32,9 +35,20 @@ PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}   # colour type -> samples a pixel
 
 
+def png_decodes_without_pillow(blob: bytes) -> bool:
+    """True for a PNG that :func:`decode_png` takes: not interlaced, 8-bit
+    gray, gray+alpha, RGB or RGBA (read from its IHDR chunk)."""
+    if blob[:8] != PNG_MAGIC or blob[12:16] != b"IHDR":
+        return False
+    _, _, depth, colour, _, _, interlace = struct.unpack_from(">IIBBBBB",
+                                                              blob, 16)
+    return depth == 8 and colour in _PNG_CHANNELS and not interlace
+
+
 def decode_png(blob: bytes) -> np.ndarray:
     """An 8-bit gray (0), gray+alpha (4), RGB (2) or RGBA (6) PNG as (H, W,
-    C) uint8. Other bit depths, palettes and interlaced files raise."""
+    C) uint8. Other bit depths, palettes and interlaced files raise
+    (:func:`decode_image` hands those to Pillow)."""
     if blob[:8] != PNG_MAGIC:
         raise ValueError("not a PNG")
     pos, header, idat = 8, None, []
@@ -110,18 +124,20 @@ def _unfilter(kinds: np.ndarray, x: np.ndarray) -> np.ndarray:
 
 
 def decode_image(blob: bytes) -> np.ndarray:
-    """Decode PNG, TIFF or JPEG bytes to (H, W, C): PNG and TIFF without
-    Pillow, JPEG (or anything else) with it."""
-    if blob[:8] == PNG_MAGIC:
+    """Decode PNG, TIFF or JPEG bytes to (H, W, C) as the reference's
+    Pillow decode does: 8-bit non-interlaced PNG and TIFF without Pillow,
+    any other PNG, JPEG (or anything else) with it."""
+    if png_decodes_without_pillow(blob):
         return decode_png(blob)
     if blob[:4] == b"II*\x00":
         return decode_geotiff(blob).data
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError("decoding a tile that is neither PNG nor "
-                          "little-endian TIFF (e.g. JPEG) needs Pillow, which "
-                          "is not installed") from e
+        raise ImportError("decoding a tile that is neither an 8-bit "
+                          "non-interlaced PNG nor a little-endian TIFF (e.g. "
+                          "JPEG, a palette PNG) needs Pillow, which is not "
+                          "installed") from e
     arr = np.asarray(Image.open(_io.BytesIO(blob)))
     if arr.ndim == 2:
         arr = arr[:, :, None]

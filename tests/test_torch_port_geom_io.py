@@ -22,7 +22,6 @@ from roadsurf_tpu.pipeline.detections import paste_masks as j_paste
 from roadsurf_tpu_torch.crs import transform as tcrs
 from roadsurf_tpu_torch.geom import Polygon, core as tcore
 from roadsurf_tpu_torch.geom import vectorize as tvec
-from roadsurf_tpu_torch.geom.table import DetectionTable
 from roadsurf_tpu_torch.io import geotiff as ttif
 from roadsurf_tpu_torch.io import wkb as twkb
 from roadsurf_tpu_torch.pipeline.detections import paste_masks
@@ -172,22 +171,24 @@ def test_webmercator_equals_the_reference():
 
 
 def test_table_to_crs_equals_the_reference_frame():
-    """The detections table's reprojection and bounds against the
-    reference's GeoDataFrame.to_crs."""
+    """The detection stage's table (the port's GeoDataFrame) reprojected
+    against the reference's GeoDataFrame.to_crs: polygons and bounds."""
     from roadsurf_tpu.geom import GeoDataFrame
+    from roadsurf_tpu_torch.geom.table import GeoDataFrame as TFrame
 
     rng = np.random.default_rng(9)
     polys = []
     for _ in range(5):
         c = rng.uniform(9.0e5, 1.0e6, 2)
         polys.append(c + rng.uniform(-50, 50, (6, 2)))
-    t = DetectionTable([Polygon(p) for p in polys], rng.random(5),
-                       np.arange(5) % 2, 3857).to_crs(4326)
+    t = TFrame({"geometry": [Polygon(p) for p in polys],
+                "score": rng.random(5), "det_class": np.arange(5) % 2},
+               crs="EPSG:3857").to_crs(epsg=4326)
     g = GeoDataFrame({"geometry": [JPolygon(p) for p in polys]},
                      crs="EPSG:3857").to_crs(epsg=4326)
-    _equal_polygons(t.geometry, list(g["geometry"]))
+    _equal_polygons(list(t.geometry.values), list(g["geometry"]))
     np.testing.assert_array_equal(t.total_bounds, g.total_bounds)
-    assert t.epsg == 4326
+    assert str(t.crs) == str(g.crs) == "EPSG:4326"
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])

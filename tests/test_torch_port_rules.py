@@ -77,7 +77,11 @@ def test_the_import_check_covers_every_module_of_the_port():
                    "io/xlsx.py", "io/gpkg.py", "io/wkb.py", "io/__init__.py",
                    "tiles/__init__.py", "tiles/grid.py", "tiles/fetch.py",
                    "utils/logging.py", "utils/misc.py",
-                   "pipeline/label_prep.py", "pipeline/tilesets.py"):
+                   "pipeline/label_prep.py", "pipeline/tilesets.py",
+                   "viz/__init__.py", "viz/charts.py",
+                   "pipeline/classify.py", "pipeline/evaluate.py",
+                   "pipeline/assess.py", "tools/learning_smoke.py",
+                   "tools/quality.py"):
         assert os.path.join("roadsurf_tpu_torch", module) in files, module
     assert "chip_smoke.py" in files
 
@@ -185,8 +189,11 @@ def _module_level(body):
 def test_port_imports_no_pil_at_module_level():
     """The port's resizes (pipeline/resize.py) and its PNG and TIFF tile
     decoding (tiles/fetch.py) are its own, so neither needs Pillow. Only
-    the best-effort sample drawing of the eval and the fetcher's JPEG
-    decoding import Pillow, inside the function that needs it."""
+    the best-effort sample drawing of the eval, the fetcher's decoding of
+    JPEG and of the PNG kinds its own decoder does not take, and the
+    quality chain's synthetic tile service (tools/quality.py, which writes
+    PNG as the reference's does) import Pillow, inside the function that
+    needs it."""
     bad, inside = [], []
     for path in _port_sources():
         with open(path) as f:
@@ -205,22 +212,27 @@ def test_port_imports_no_pil_at_module_level():
     assert not bad, bad
     assert sorted(p.split("roadsurf_tpu_torch/")[-1].split(":")[0]
                   for p in inside) == ["engine/coco_eval.py",
-                                       "tiles/fetch.py"]
+                                       "tiles/fetch.py", "tools/quality.py"]
 
 
 # the modules that import pandas: the GeoDataFrame layer (a pandas frame,
-# as the reference's is), the vector I/O that reads and writes it, and the
-# label preparation that joins road tables; chip_smoke.py reads
+# as the reference's is), the vector I/O that reads and writes it, the
+# label preparation that joins road tables, the classify, evaluate and
+# assess stages (pandas group-bys and metric tables, as the reference's)
+# and the quality chain that reads their CSVs; chip_smoke.py reads
 # labels_id.json with pd.read_json, as the pipeline's users do
 PANDAS_MODULES = {"geom/table.py", "geom/cleanup.py", "io/geojson.py",
                   "io/shapefile.py", "io/xlsx.py", "io/gpkg.py",
-                  "pipeline/label_prep.py", "chip_smoke.py"}
+                  "pipeline/label_prep.py", "pipeline/classify.py",
+                  "pipeline/evaluate.py", "pipeline/assess.py",
+                  "tools/quality.py", "chip_smoke.py"}
 
 
 def test_port_imports_no_pandas():
     """No module imports pandas but those of PANDAS_MODULES: the kernels,
-    the models, the engine, training and the detection host stage carry
-    their tables as plain columns (DetectionTable)."""
+    the models, the engine, training and the detection host stage (whose
+    records become a GeoDataFrame only as it returns) carry their data as
+    tensors, arrays and lists."""
     bad = []
     for path in _port_sources():
         with open(path) as f:
@@ -371,8 +383,11 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     boxes = torch.empty((B, R, 4), device="meta")
     lvl = torch.empty((B, R), dtype=torch.int32, device="meta")
     _check(feats, boxes, lvl, 7, 2)
+    _check(tuple(f.float() for f in feats), boxes, lvl, 7, 2)
     with pytest.raises(TypeError):
-        _check(tuple(f.float() for f in feats), boxes, lvl, 7, 2)
+        _check(tuple(f.double() for f in feats), boxes, lvl, 7, 2)
+    with pytest.raises(TypeError):
+        _check((feats[0], feats[1].float()), boxes, lvl, 7, 2)
     with pytest.raises(ValueError):
         _check((feats[0].permute(0, 2, 1, 3),), boxes, lvl, 7, 2)
     with pytest.raises(ValueError):
@@ -429,8 +444,9 @@ def test_blocked_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     lvl = torch.empty((B, R), dtype=torch.int32, device="meta")
     for P, s in ((7, 0), (14, 0), (7, 2)):
         _check(feats, boxes, lvl, P, s)
+        _check(tuple(f.float() for f in feats), boxes, lvl, P, s)
     with pytest.raises(TypeError):
-        _check(tuple(f.float() for f in feats), boxes, lvl, 7, 0)
+        _check(tuple(f.double() for f in feats), boxes, lvl, 7, 0)
     with pytest.raises(ValueError):
         _check((feats[0].permute(0, 2, 1, 3),), boxes, lvl, 7, 0)
     with pytest.raises(ValueError):

@@ -151,12 +151,16 @@ def test_xlsx_equals_the_reference(tmp_path, still_clock):
 
 
 def test_detection_table_and_frame_write_the_same_gpkg(tmp_path):
-    """The port's writer takes the detection host stage's DetectionTable
-    and a GeoDataFrame; the same polygons and columns give the same rows."""
+    """The port's writer takes the detection host stage's table (a
+    GeoDataFrame of numpy float64 scores and int64 classes, as
+    ``pipeline/detections.py::detect_dataset`` builds it) and a frame of
+    Python lists; the same polygons and columns give the same rows."""
     polys = [tcore.Polygon([[0, 0], [2, 0], [2, 2], [0, 2]]),
              tcore.Polygon([[5, 5], [6, 5], [6, 6], [5, 6]])]
-    det = ttable.DetectionTable(polys, np.array([0.5, 0.75]),
-                                np.array([0, 1]), 4326)
+    det = ttable.GeoDataFrame({"geometry": polys,
+                               "score": np.array([0.5, 0.75], np.float64),
+                               "det_class": np.array([0, 1], np.int64)},
+                              crs="EPSG:4326")
     frame = ttable.GeoDataFrame({"score": [0.5, 0.75], "det_class": [0, 1],
                                  "geometry": polys}, crs=4326)
     tio.write_gpkg(det, str(tmp_path / "det.gpkg"), layer="x")
