@@ -171,6 +171,29 @@ exits non-zero:
    ``scale_to_byte`` (equal to its CPU version), each timed; then
    ``Tif2Cog.run`` over a ``LocalStore`` on three 2000² images: steps
    1-3, a rerun that skips, COGs in EPSG:3857 with 8 overviews.
+19. ``stats_path``: the statistical branch, config/config_stats.yaml's
+   chain (``stats_chain``) on ``write_scene``'s grid: ``pipeline.
+   stats_prep`` (the overlap-free road polygons, the restricted AOI),
+   ``pipeline.label_prep`` (the tiles over them), ``pipeline.tilesets``
+   (4-band TIFF tiles, R, G, B and NIR, from ``BandsOpener``; the YAML's
+   debug cap of 100 tiles) and ``pipeline.stats_analysis`` (KS tests on,
+   the PCAs on the card; without matplotlib no figure, the PCAs' tables
+   alone), then ``assess --statistics``, the DEM chain (``tiles.
+   rasters.run`` over nine synthetic 1 km² DEM tiles at 2 m from a local
+   opener), the sandbox tools and ``upload.run`` twice into a
+   ``LocalStore``. Checks: no road polygons overlapping by more than 1 m²;
+   the restricted AOI against ``aoi_oracle`` (1 m pixels, within 1% of its
+   area, a hole for each field no forest reaches); pixel rows equal to the
+   masks' pixel counts; each PCA on the card equal to its CPU run within
+   1e-9·max|value| (also on the pixel frame repeated to 3.7 M rows, both
+   timed); each road the analysis repairs with buffer(0) (invalid once
+   reprojected to EPSG:3857) covering the points its own fill covers; the
+   DEM statistics equal to numpy's over the same masks; the
+   limiter, the corrections and the tile masks against brute force and the
+   roads' fill; the second upload skipping every file; every file the
+   YAML promises written. Its line holds each stage's seconds, the pixel
+   rows and features, the PCA's seconds on the card and on the CPU, the
+   counts and whether matplotlib is importable.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -1784,6 +1807,238 @@ class MosaicOpener:
         return png_bytes(self.tile(int(x), int(y.split(".")[0])))
 
 
+class BandsOpener:
+    """Serves the z18 tiles of ``tiles_aoi.geojson`` as 4-band TIFF bytes
+    (R, G, B, NIR: what the statistical YAML's tile service returns for
+    ``bidx=2,3,4,1``), cut from one mosaic drawn as ``MosaicOpener`` draws
+    its 3 bands: noise, with the road polygons (any frame with BELAGSART,
+    e.g. ``roads_polygons_stats.shp``) filled by ``geom_rasterize`` in one
+    colour a surface, each road's own shade of it, with noise."""
+
+    COLOURS = {100: (190, 185, 175, 110), 200: (130, 105, 70, 165)}
+
+    def __init__(self, tiles_geojson: str, roads, seed: int, tmp_dir: str):
+        import re
+
+        from roadsurf_tpu_torch.geom import _native
+        from roadsurf_tpu_torch.io import read_file
+        from roadsurf_tpu_torch.tiles import Tile, WebMercatorQuad, \
+            parse_tile_id
+
+        self._re = re.compile(r"/(\d+)/(\d+)/(\d+)\.tif")
+        self._tmp = tmp_dir     # a tile is encoded through a file here
+        ts = [parse_tile_id(t) for t in read_file(tiles_geojson)["id"]]
+        self.x0, self.y0 = min(t.x for t in ts), min(t.y for t in ts)
+        nx = max(t.x for t in ts) - self.x0 + 1
+        ny = max(t.y for t in ts) - self.y0 + 1
+        self.west, _, _, self.north = WebMercatorQuad.xy_bounds(
+            Tile(self.x0, self.y0, 18))
+        self.px = WebMercatorQuad.tile_span(18) / TILE
+        rng = np.random.default_rng(seed)
+        self.mosaic = rng.integers(40, 140, (ny * TILE, nx * TILE, 4),
+                                   np.uint8)
+        roads = roads.to_crs(epsg=3857)
+        for g, surface in zip(roads.geometry.values, roads["BELAGSART"]):
+            colour = self.COLOURS.get(int(surface))
+            if g is None or g.is_empty or colour is None:
+                continue
+            shade = np.array(colour) + rng.integers(-15, 16, 4)
+            for p in (g.geoms if g.geom_type == "MultiPolygon" else [g]):
+                x0, y0, x1, y1 = p.bounds
+                c0 = max(int((x0 - self.west) / self.px), 0)
+                r0 = max(int((self.north - y1) / self.px), 0)
+                c1 = min(int((x1 - self.west) / self.px) + 1, nx * TILE)
+                r1 = min(int((self.north - y0) / self.px) + 1, ny * TILE)
+                if c1 <= c0 or r1 <= r0:
+                    continue
+                m = _native.rasterize(
+                    _native.pack([[p.exterior_coords,
+                                   *p.interiors_coords]]),
+                    self.west + c0 * self.px, self.px,
+                    self.north - r0 * self.px, -self.px, r1 - r0, c1 - c0)
+                inside = m > 0
+                self.mosaic[r0:r1, c0:c1][inside] = np.clip(
+                    shade + rng.integers(-12, 13, (int(inside.sum()), 4)),
+                    0, 255)
+        self.served = 0
+
+    def tile(self, x: int, y: int) -> np.ndarray:
+        r, c = (y - self.y0) * TILE, (x - self.x0) * TILE
+        return self.mosaic[r:r + TILE, c:c + TILE]
+
+    def __call__(self, url: str) -> bytes:
+        import threading
+
+        from roadsurf_tpu_torch.io import write_geotiff
+        from roadsurf_tpu_torch.tiles import Tile, WebMercatorQuad
+
+        z, x, y = map(int, self._re.search(url).groups())
+        path = os.path.join(self._tmp,
+                            f"{z}_{x}_{y}_{threading.get_ident()}.tif")
+        write_geotiff(path, self.tile(x, y),
+                      WebMercatorQuad.xy_bounds(Tile(x, y, z)))
+        with open(path, "rb") as f:
+            blob = f.read()
+        os.remove(path)
+        self.served += 1
+        return blob
+
+
+def fill_polygons(geoms, x0: float, y0: float, px: float, h: int,
+                  w: int) -> np.ndarray:
+    """The even-odd pixel-centre fill of each (Multi)Polygon, OR-ed, on the
+    grid whose pixel (r, c) has its centre at (x0 + (c + .5)·px, y0 + (r +
+    .5)·px)."""
+    from roadsurf_tpu_torch.geom import _native
+
+    out = np.zeros((h, w), bool)
+    for g in geoms:
+        if g is None or g.is_empty:
+            continue
+        for p in (g.geoms if g.geom_type == "MultiPolygon" else [g]):
+            bx0, by0, bx1, by1 = p.bounds
+            c0, c1 = max(int((bx0 - x0) / px) - 1, 0), \
+                min(int((bx1 - x0) / px) + 2, w)
+            r0, r1 = max(int((by0 - y0) / px) - 1, 0), \
+                min(int((by1 - y0) / px) + 2, h)
+            if c1 <= c0 or r1 <= r0:
+                continue
+            out[r0:r1, c0:c1] |= _native.rasterize(
+                _native.pack([[p.exterior_coords, *p.interiors_coords]]),
+                x0 + c0 * px, px, y0 + r0 * px, px, r1 - r0,
+                c1 - c0).astype(bool)
+    return out
+
+
+def near_segments(segments, d: float, x0: float, y0: float, px: float,
+                  h: int, w: int) -> np.ndarray:
+    """Pixel centres within ``d`` of any of ``segments`` ((2, 2) arrays),
+    by the point-segment distance (no geometry operation involved)."""
+    out = np.zeros((h, w), bool)
+    for a, b in segments:
+        lo, hi = np.minimum(a, b) - d, np.maximum(a, b) + d
+        c0, c1 = max(int((lo[0] - x0) / px), 0), min(int((hi[0] - x0) / px)
+                                                     + 2, w)
+        r0, r1 = max(int((lo[1] - y0) / px), 0), min(int((hi[1] - y0) / px)
+                                                     + 2, h)
+        if c1 <= c0 or r1 <= r0:
+            continue
+        xs = x0 + (np.arange(c0, c1) + 0.5) * px
+        ys = y0 + (np.arange(r0, r1) + 0.5) * px
+        qx, qy = np.meshgrid(xs - a[0], ys - a[1])
+        ab = b - a
+        t = np.clip((qx * ab[0] + qy * ab[1]) / max(ab @ ab, 1e-300), 0, 1)
+        out[r0:r1, c0:c1] |= np.hypot(qx - t * ab[0], qy - t * ab[1]) <= d
+    return out
+
+
+def aoi_oracle(road_lines, forests, width: float, px: float = 1.0) -> dict:
+    """The restricted AOI's raster oracle: pixel centres within ``width``
+    of a road line, minus those inside a forest or within 3 m of one, at
+    ``px`` m; and the fields, the parts of the rest the roads enclose
+    (pixels joined by a side or a corner), counted where no 3 m-buffered
+    forest reaches them."""
+    from scipy import ndimage
+
+    segs = [(c[i], c[i + 1]) for g in road_lines
+            for c in [np.asarray(g.coords_array, np.float64)]
+            for i in range(len(c) - 1)]
+    xy = np.concatenate([np.stack(s) for s in segs])
+    x0, y0 = xy.min(0) - width - 3 * px - 0.0137
+    x1, y1 = xy.max(0) + width + 3 * px
+    h, w = int(np.ceil((y1 - y0) / px)), int(np.ceil((x1 - x0) / px))
+    roads = near_segments(segs, width, x0, y0, px, h, w)
+    fsegs = [(r[i], r[(i + 1) % len(r)]) for f in forests
+             for p in (f.geoms if f.geom_type == "MultiPolygon" else [f])
+             for r in (p.exterior_coords, *p.interiors_coords)
+             for i in range(len(r))]
+    forest = fill_polygons(forests, x0, y0, px, h, w) \
+        | near_segments(fsegs, 3.0, x0, y0, px, h, w)
+    lab, n = ndimage.label(~roads, structure=np.ones((3, 3)))
+    outside = lab[0, 0]
+    touched = set(np.unique(lab[forest & ~roads]))
+    free = [k for k in range(1, n + 1) if k != outside and k not in touched]
+    return {"truth": roads & ~forest, "box": (x0, y0, px, h, w),
+            "fields": n - 1, "fields_free": len(free)}
+
+
+def aoi_agreement(raoi_geoms, oracle: dict) -> dict:
+    """The restricted AOI (its polygons) against ``aoi_oracle``: m² where
+    they differ, the oracle's m² and the AOI's holes."""
+    x0, y0, px, h, w = oracle["box"]
+    got = fill_polygons(raoi_geoms, x0, y0, px, h, w)
+    holes = sum(len(p.interiors_coords) for g in raoi_geoms
+                if g is not None and not g.is_empty
+                for p in (g.geoms if g.geom_type == "MultiPolygon" else [g]))
+    return {"mismatch_m2": float((got != oracle["truth"]).sum() * px * px),
+            "oracle_m2": float(oracle["truth"].sum() * px * px),
+            "holes": holes, "fields": oracle["fields"],
+            "fields_free": oracle["fields_free"]}
+
+
+def stats_chain(mods, data: str, out: str, tmp_dir: str, ks: bool = False,
+                figures: bool = True, analysis_kw: dict | None = None
+                ) -> tuple[dict, object]:
+    """The user's chain of config/config_stats.yaml on ``data`` into
+    ``out``, with the stages of ``mods`` = (stats_prep, label_prep,
+    tilesets, stats_analysis) (either package's): ``prepare_data.py`` (the
+    overlap-free road polygons and the restricted AOI),
+    ``prepare_data_obj_detec.py`` (the z18 tiles over the roads'
+    polygons), ``generate_tilesets.py`` (4-band tiles served by a
+    ``BandsOpener`` over the written polygons, encoding through files in
+    ``tmp_dir``; the YAML's debug cap of 100 tiles) and
+    ``statistical_analysis.py`` at the YAML's ``param`` (``do_ks_test``
+    set to ``ks``; with ``figures`` off, ``make_boxplots`` off too), with
+    ``analysis_kw`` passed to its ``run``. Returns (each stage's
+    seconds, the opener)."""
+    import copy
+
+    import yaml
+
+    stats_prep, label_prep, tilesets, stats_analysis = mods
+    with open(os.path.join(ROOT, "config", "config_stats.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    s = {}
+    t0 = time.perf_counter()
+    sp = copy.deepcopy(cfg["prepare_data.py"])
+    sp["input"]["input_folder"] = data
+    sp["output_folder"] = out
+    stats_prep.run(sp)
+    s["stats_prep"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    lp = copy.deepcopy(cfg["prepare_data_obj_detec.py"])
+    lp["input"]["input_folder"] = data
+    lp["output_folder"] = out
+    label_prep.run(lp)
+    s["label_prep"] = time.perf_counter() - t0
+
+    from roadsurf_tpu_torch.io import read_file
+
+    t0 = time.perf_counter()
+    opener = BandsOpener(
+        os.path.join(out, "json_inputs", "tiles_aoi.geojson"),
+        read_file(os.path.join(out, "shapefiles_gpkg",
+                               "roads_polygons_stats.shp")), 6, tmp_dir)
+    s["mosaic"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ts = copy.deepcopy(cfg["generate_tilesets.py"])
+    ts["working_directory"] = out
+    tilesets.run(ts, opener=opener)
+    s["tilesets"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sa = copy.deepcopy(cfg["statistical_analysis.py"])
+    sa["processed"]["processed_folder"] = out
+    sa["final_folder"] = os.path.join(out, "final")
+    sa["param"]["do_ks_test"] = ks
+    if not figures:
+        sa["param"]["make_boxplots"] = False
+    stats_analysis.run(sa, **(analysis_kw or {}))
+    s["stats_analysis"] = time.perf_counter() - t0
+    return s, opener
+
+
 def phase_tileset_path() -> dict:
     """The user's chain on the card's host, then training on what it wrote:
     ``pipeline.label_prep.run`` with the YAML's ``prepare_data_obj_detec.py``
@@ -2597,6 +2852,422 @@ def phase_cog_path() -> dict:
     return res
 
 
+DEM_TILE_M, DEM_PX = 1000.0, 2.0    # swissALTI3D's 1 km² tiles at 2 m
+PCA_TOL = 1e-9                      # card against CPU, of max|value|
+PCA_AT_SCALE_ROWS = 3_700_000       # the pixel rows of the whole 9 km²
+
+
+def _pca_agreement(frame, feats, timed: dict) -> dict:
+    """``calculate_pca`` of one frame on the card and with device="cpu":
+    the largest difference of the components, explained variances and
+    coordinates over each one's max|value|, and both times."""
+    from roadsurf_tpu_torch.stats import calculate_pca
+
+    t0 = time.perf_counter()
+    gpu, gc = calculate_pca(frame, feats, "road_type", None, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu, cc = calculate_pca(frame, feats, "road_type", None, device="cpu")
+    t2 = time.perf_counter()
+    timed["cuda_s"] = timed.get("cuda_s", 0.0) + t1 - t0
+    timed["cpu_s"] = timed.get("cpu_s", 0.0) + t2 - t1
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+    ev = cpu.explained_variance_
+    k = int((ev > 1e-10 * ev[0]).sum())    # the null space's any basis
+    return {"rows": len(frame), "features": len(feats), "solver": gpu.solver,
+            "components": rel(gpu.components_[:k], cpu.components_[:k]),
+            "variance": rel(gpu.explained_variance_, ev),
+            "coordinates": rel(gc, cc), "determined": k}
+
+
+def _dem_tiles(rng) -> dict:
+    """Nine 1 km² DEM tiles at 2 m over the scene (uint16 metres: the
+    GeoTIFF codec takes 8- and 16-bit unsigned samples; a slope, hills and
+    noise), as {url: TIFF bytes} of a local tile service."""
+    import tempfile
+
+    from roadsurf_tpu_torch.io import write_geotiff
+
+    n = int(DEM_TILE_M / DEM_PX)
+    served = {}
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(3):
+            for j in range(3):
+                x0 = SCENE_X0 + i * DEM_TILE_M
+                y0 = SCENE_Y0 + j * DEM_TILE_M
+                xs = x0 + (np.arange(n) + 0.5) * DEM_PX
+                ys = y0 + DEM_TILE_M - (np.arange(n) + 0.5) * DEM_PX
+                gx, gy = np.meshgrid(xs - SCENE_X0, ys - SCENE_Y0)
+                z = (450 + 0.02 * gx + 0.01 * gy
+                     + 30 * np.sin(gx / 400) * np.cos(gy / 300)
+                     + rng.normal(0, 0.5, gx.shape))
+                name = f"swissalti3d_2019_{2600 + i}-{1200 + j}_2_2056.tif"
+                p = os.path.join(d, name)
+                write_geotiff(p, z.round().astype(np.uint16),
+                              (x0, y0, x0 + DEM_TILE_M, y0 + DEM_TILE_M),
+                              epsg=2056)
+                with open(p, "rb") as f:
+                    served[f"https://data.geo.admin.ch/ch.swisstopo."
+                           f"swissalti3d/{name}"] = f.read()
+    return served
+
+
+def phase_stats_path() -> dict:
+    """The statistical branch on the card's host, its PCAs on the card.
+    ``write_scene``'s GRID x GRID jittered road grid in 9 km²; then
+    ``stats_chain``: config/config_stats.yaml's blocks, ``pipeline.
+    stats_prep`` (both tasks), ``pipeline.label_prep`` (the tiles over
+    ``roads_polygons_stats.shp``), ``pipeline.tilesets`` (4-band tiles
+    from ``BandsOpener``; the YAML's debug cap of 100 tiles) and
+    ``pipeline.stats_analysis`` at the YAML's ``param`` with
+    ``do_ks_test`` on, the PCAs on ``cuda`` (figures off when matplotlib is
+    missing: the PCAs' tables alone); ``assess --statistics`` on the
+    tileset; the DEM chain (nine 1 km² DEM tiles at 2 m from a local
+    opener through ``tiles.rasters.run``: download, mosaic, zonal
+    statistics of the roads); the sandbox tools (``limit_used_tiles``,
+    ``correct_gt``, ``add_tile_mask`` on 20 tiles) and ``upload.run`` into
+    a ``LocalStore``, twice. Checks: no two road polygons overlap by more
+    than 1 m²; the restricted AOI agrees with ``aoi_oracle`` at 1 m within
+    1% of its area, with at least one hole for each field no forest
+    reaches; the pixel rows equal the masks' pixel counts; each PCA on the
+    card equals its CPU run within PCA_TOL·max|value| (also on the pixel
+    frame repeated to PCA_AT_SCALE_ROWS rows, timed both ways); the DEM
+    statistics equal numpy's over the same masks; the limiter keeps the
+    tiles that touch the GT and not the other labels; the corrections
+    land; each tile mask is 255 exactly on the fill of the roads; each
+    road the analysis repairs with buffer(0) (invalid once reprojected)
+    covers the points its own fill covers; the
+    second upload skips every file; every file the YAML promises is
+    written (and its figures decode, where there are figures)."""
+    import importlib.util
+    import tempfile
+
+    import pandas as pd
+    import yaml
+
+    from roadsurf_tpu_torch.geom import GeoDataFrame
+    from roadsurf_tpu_torch.io import read_excel, read_file, read_geotiff
+    from roadsurf_tpu_torch.io.objstore import LocalStore
+    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+    from roadsurf_tpu_torch.pipeline import (assess, label_prep, sandbox,
+                                             stats_analysis, stats_prep,
+                                             tilesets, upload)
+    from roadsurf_tpu_torch.stats.pixels import _geometry_mask
+    from roadsurf_tpu_torch.tiles import WebMercatorQuad, parse_tile_id
+    from roadsurf_tpu_torch.tiles import rasters
+
+    from importlib import metadata
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    libraries = {}
+    for dist in ("matplotlib", "scipy", "pillow", "scikit-learn", "pandas"):
+        try:
+            libraries[dist] = metadata.version(dist)
+        except metadata.PackageNotFoundError:
+            libraries[dist] = None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    res = {"phase": "stats_path", "matplotlib": has_mpl,
+           "libraries": libraries,
+           "scene": {"grid": GRID, "aoi_km2": (SCENE_SIDE / 1e3) ** 2},
+           "reduced": {"aoi_km2": "9 of swissTLM3D's ~840 (time)",
+                       "tiles": "the YAML's debug cap (100)",
+                       "figures": "drawn" if has_mpl else
+                       "none: no matplotlib on this machine"}}
+    s = {}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        t0 = time.perf_counter()
+        data = write_scene(root)
+        s["scene"] = time.perf_counter() - t0
+        out = os.path.join(root, "outputs")
+        os.makedirs(os.path.join(root, "tmp"))
+        calls, an_s = [], {}
+        procedure = stats_analysis.pca_procedure
+
+        def logged(dataset, features, *a, **kw):
+            calls.append((dataset.copy(), list(features)))
+            return procedure(dataset, features, *a, **kw)
+
+        stats_analysis.pca_procedure = logged
+        try:
+            chain_s, opener = stats_chain(
+                (stats_prep, label_prep, tilesets, stats_analysis), data,
+                out, os.path.join(root, "tmp"), ks=True, figures=has_mpl,
+                analysis_kw={"device": "cuda", "figures": has_mpl,
+                             "timings": an_s})
+        finally:
+            stats_analysis.pca_procedure = procedure
+        s.update(chain_s)
+        s["stats_analysis_stages"] = an_s
+        shp = os.path.join(out, "shapefiles_gpkg")
+        polys = read_file(os.path.join(shp, "roads_polygons_stats.shp"))
+
+        # the road polygons: no overlap
+        geoms = list(polys.geometry.values)
+        bounds = np.array([g.bounds for g in geoms])
+        worst = 0.0
+        for i in range(len(geoms)):
+            near = np.flatnonzero(
+                (bounds[i + 1:, 0] <= bounds[i, 2])
+                & (bounds[i + 1:, 2] >= bounds[i, 0])
+                & (bounds[i + 1:, 1] <= bounds[i, 3])
+                & (bounds[i + 1:, 3] >= bounds[i, 1])) + i + 1
+            for j in near:
+                worst = max(worst, (geoms[i] & geoms[j]).area)
+        _require(worst <= 1.0, f"two road polygons overlap by {worst} m²")
+
+        # the restricted AOI against the oracle
+        roads = read_file(os.path.join(data, "swissTLM3D",
+                                       "roads_lines.shp"))
+        forests = read_file(os.path.join(data, "swissTLM3D", "forests.shp"))
+        params = read_excel(os.path.join(data, "roads_parameters.xlsx"))
+        _, in_aoi = stats_prep.determine_road_surfaces_stats(
+            roads, forests, params,
+            read_file(os.path.join(data, "AOI", "aoi.shp")))
+        oracle = aoi_oracle(in_aoi.geometry.values, forests.geometry.values,
+                            (params["Width"].max() + 1) / 2)
+        raoi = read_file(os.path.join(shp, "restricted_AOI.shp"))
+        aoi = aoi_agreement(raoi.geometry.values, oracle)
+        _require(aoi["mismatch_m2"] <= 0.01 * aoi["oracle_m2"]
+                 and aoi["holes"] >= aoi["fields_free"] > 0,
+                 f"restricted_AOI.shp against the oracle: {aoi}")
+
+        # the analysis's buffer(0) repair of the roads its reprojection to
+        # EPSG:3857 leaves invalid, against the point oracle
+        from roadsurf_tpu_torch.geom import _native
+
+        def inside(g, pts):
+            parts = g.geoms if g.geom_type == "MultiPolygon" else [g]
+            return _native.points_in_polyset(pts, _native.pack(
+                [[q.exterior_coords, *q.interiors_coords] for q in parts]))
+
+        p3857 = polys.to_crs(epsg=3857)
+        rng = np.random.default_rng(17)
+        repaired = 0
+        for g, ok in zip(p3857.geometry.values, p3857.is_valid):
+            if ok:
+                continue
+            pts = rng.uniform(g.bounds[:2], g.bounds[2:], (200000, 2))
+            fixed = g.buffer(0)
+            _require(fixed.is_valid and np.array_equal(
+                inside(fixed, pts), inside(g, pts)),
+                "a reprojected road's buffer(0) differs from its fill")
+            repaired += 1
+
+        # the pixel rows against the masks' pixel counts
+        od = os.path.join(out, "obj_detector")
+        tiles = read_file(os.path.join(out, "json_inputs",
+                                       "tiles_aoi.geojson")).to_crs(
+            epsg=3857)
+        on_disk = {}
+        for tid in tiles["id"]:
+            t = parse_tile_id(tid)
+            p = os.path.join(od, "all-images",
+                             WebMercatorQuad.tile_filename(t))
+            if os.path.exists(p):
+                on_disk[tid] = read_geotiff(p)
+        tb = {tid: WebMercatorQuad.xy_bounds(parse_tile_id(tid))
+              for tid in on_disk}
+        masked = 0
+        for g in p3857.geometry.values:
+            x0, y0, x1, y1 = g.bounds
+            for tid, r in on_disk.items():
+                w, so, e, n = tb[tid]
+                if x0 <= e and x1 >= w and y0 <= n and y1 >= so:
+                    masked += int(_geometry_mask(g, r).sum())
+        pixels, feats = calls[0]
+        _require(len(pixels) == masked > 0,
+                 f"{len(pixels)} pixel rows, {masked} masked pixels")
+
+        # every PCA on the card against the CPU, and at scale
+        pca_t = {}
+        agree = [_pca_agreement(f, c, pca_t) for f, c in calls]
+        big = pd.concat([pixels] * int(np.ceil(PCA_AT_SCALE_ROWS
+                                               / len(pixels))),
+                        ignore_index=True)
+        scale_t = {}
+        at_scale = _pca_agreement(big, feats, scale_t)
+        del big
+        _require(all(max(a["components"], a["variance"], a["coordinates"])
+                     <= PCA_TOL for a in agree + [at_scale]),
+                 f"the card's PCA differs from the CPU's: {agree}, "
+                 f"{at_scale}")
+
+        # every file the YAML promises
+        with open(os.path.join(ROOT, "config", "config_stats.yaml")) as f:
+            scfg = yaml.safe_load(f)
+        final = os.path.join(out, "final")
+        want = [os.path.join(out, "tables", "stats_roads.csv")] + [
+            os.path.join(final, "tables", n) for n in (
+                "statistics_roads_by_type.csv", "ks_test.csv")]
+        for prefix in ["PCA_pixels_"] + [f"PCA_stats_band_{b}_" for b in
+                                         stats_analysis.BANDS_STR]:
+            want += [os.path.join(final, "tables", prefix + n) for n in (
+                "values.csv", "loading_matrix.csv", "corr_matrix.csv")]
+        figures = []
+        if has_mpl and scfg["statistical_analysis.py"]["param"][
+                "make_boxplots"]:
+            figures += [os.path.join(final, "images", n) for n in (
+                "boxplot_pixel_in_bands.webp",
+                "boxplot_pixel_by_VgNIR_BI.webp")]
+        if has_mpl:
+            figures += [os.path.join(final, "images",
+                                     "PCA_pixels_PC_to_keep_evplot.jpg"),
+                        os.path.join(final, "images",
+                                     "PCA_pixels_PC12_features.webp")]
+        missing = [p for p in want + figures if not os.path.exists(p)]
+        _require(not missing, f"the analysis did not write {missing}")
+        if figures:
+            from PIL import Image
+
+            for p in figures:
+                with Image.open(p) as im:
+                    im.load()
+        ks = pd.read_csv(os.path.join(final, "tables", "ks_test.csv"))
+        _require(len(ks) > 0 and ks["ks_p_red"].between(0, 1).all(),
+                 "ks_test.csv")
+
+        # assess --statistics on the tileset (calculate_statistics.py)
+        t0 = time.perf_counter()
+        block = os.path.join(root, "assess.yaml")
+        with open(block, "w") as f:
+            yaml.safe_dump({"calculate_statistics.py": {
+                "working_folder": od, "tiles": "split_aoi_tiles.geojson"}},
+                f)
+        _require(assess.main([block, "--statistics"]) == 0, "assess")
+        with open(os.path.join(od, "img_statistics.json")) as f:
+            assess_stats = json.load(f)
+        _require(assess_stats["oth"]["n_pixels"] == TILE * TILE
+                 * opener.served and len(assess_stats["oth"]["mean"]) == 4,
+                 f"img_statistics.json: {assess_stats}")
+        s["assess"] = time.perf_counter() - t0
+
+        # the DEM chain
+        dem = os.path.join(root, "DEM")
+        os.makedirs(dem)
+        served = _dem_tiles(np.random.default_rng(12))
+        with open(os.path.join(dem, "urls.csv"), "w") as f:
+            f.write("\n".join(served) + "\n")
+        dem_s = {}
+        rasters.run(dem, out, out, "urls.csv",
+                    "shapefiles_gpkg/roads_polygons_stats.shp",
+                    generate_mosaic=True, opener=served.__getitem__,
+                    timings=dem_s)
+        s["dem"] = dem_s
+        zs = read_file(os.path.join(shp, "roads_dem_zs.shp"))
+        mosaic = read_geotiff(os.path.join(out, "DEM", "DEM_aoi.tif"))
+        _require(mosaic.data.shape[:2] == (1500, 1500),
+                 f"DEM mosaic {mosaic.data.shape}")
+        bad = 0
+        for g, row in zip(polys.geometry.values, zs.itertuples()):
+            v = mosaic.data[:, :, 0][_geometry_mask(g, mosaic).astype(
+                bool)].astype(np.float64)
+            if len(v):
+                bad += not (row.min == v.min() and row.max == v.max()
+                            and np.isclose(row.mean, v.mean(), rtol=1e-12)
+                            and row.median == np.median(v)
+                            and np.isclose(row.std, v.std(), rtol=1e-9))
+            else:
+                bad += not pd.isna(row.mean)
+        _require(bad == 0, f"{bad} roads' DEM statistics differ from "
+                 "numpy's")
+
+        # the sandbox tools
+        t0 = time.perf_counter()
+        pol4326 = polys.to_crs(epsg=4326)
+        gt = GeoDataFrame(pol4326[pol4326["OBJECTID"] % 2 == 0].copy(),
+                          crs=pol4326.crs)
+        oth = GeoDataFrame(pol4326[pol4326["OBJECTID"] % 2 == 1].copy(),
+                           crs=pol4326.crs)
+        tiles4326 = read_file(os.path.join(out, "json_inputs",
+                                           "tiles_aoi.geojson"))
+        kept = sandbox.limit_used_tiles(tiles4326, gt, oth, "trn, tst, val")
+        want_ids = [tid for tid, tg in zip(tiles4326["id"],
+                                           tiles4326.geometry.values)
+                    if any(tg.intersects(g) for g in gt.geometry.values)
+                    and not any(tg.intersects(g)
+                                for g in oth.geometry.values)]
+        _require(sorted(kept["id"]) == sorted(want_ids),
+                 "limit_used_tiles kept other tiles than the brute force")
+        pick = rng.choice(len(polys), 40, replace=False)
+        verified = rng.choice([100, 200, 999997, 12345], 40)
+        corrections = GeoDataFrame(
+            {"OBJECTID": polys["OBJECTID"].values[pick],
+             "Belag_veri": verified,
+             "geometry": [polys.geometry.values[k] for k in pick]},
+            crs=polys.crs)
+        fixed = sandbox.correct_gt(polys, corrections)
+        expect = dict(zip(polys["OBJECTID"], polys["BELAGSART"]))
+        expect.update({o: int(v) for o, v in zip(
+            corrections["OBJECTID"], verified) if v != 12345})
+        _require(list(fixed["BELAGSART"]) == [expect[o] for o in
+                                              fixed["OBJECTID"]],
+                 "correct_gt")
+        mask_root = os.path.join(root, "masks")
+        split = read_file(os.path.join(od, "split_aoi_tiles.geojson"))
+        sub = GeoDataFrame(split.iloc[:20].copy(), crs=split.crs)
+        for tid, ds in zip(sub["id"], sub["dataset"]):
+            fn = WebMercatorQuad.tile_filename(parse_tile_id(tid))
+            os.makedirs(os.path.join(mask_root, f"{ds}-images"),
+                        exist_ok=True)
+            src = os.path.join(od, f"{ds}-images", fn)
+            if os.path.exists(src):
+                with open(src, "rb") as fa, open(os.path.join(
+                        mask_root, f"{ds}-images", fn), "wb") as fb:
+                    fb.write(fa.read())
+        mstats = sandbox.add_tile_mask(p3857, sub.to_crs(epsg=3857),
+                                       mask_root)
+        mask_px = mask_bad = 0
+        for tid, ds in zip(sub["id"], sub["dataset"]):
+            fn = WebMercatorQuad.tile_filename(parse_tile_id(tid))
+            p = os.path.join(mask_root, f"{ds}-images", fn)
+            if not os.path.exists(p):
+                continue
+            r = read_geotiff(p)
+            road = np.zeros(r.data.shape[:2], bool)
+            for g in p3857.geometry.values:
+                road |= _geometry_mask(g, r).astype(bool)
+            mask_bad += int(((r.data[:, :, 4] == 255) != road).sum())
+            mask_px += road.size
+        _require(len(mstats) > 0 and mask_bad <= 0.001 * mask_px,
+                 f"tile masks: {mask_bad} of {mask_px} pixels off the "
+                 "roads' fill")
+        s["sandbox"] = time.perf_counter() - t0
+
+        # upload, then again
+        t0 = time.perf_counter()
+        with open(os.path.join(ROOT, "config",
+                               "config_preprocessing.yaml")) as f:
+            up = yaml.safe_load(f)["RS_images_to_S3.py"]
+        up.update(datapath=os.path.join(od, "all-images", "*"),
+                  local_store_root=os.path.join(root, "store"))
+        first = upload.run(up)
+        second = upload.run(up)
+        store = LocalStore(os.path.join(root, "store"))
+        _require(len(first) == len(os.listdir(os.path.join(
+            od, "all-images"))) > 0 and second == []
+                 and all(store.exists(k) for k in first),
+                 f"upload: {len(first)} then {len(second)}")
+        s["upload"] = time.perf_counter() - t0
+
+    res.update({
+        "s": s, "pixel_rows": len(pixels), "features": len(feats),
+        "pca": {"cuda_s": pca_t["cuda_s"], "cpu_s": pca_t["cpu_s"],
+                "per_call": agree},
+        "pca_at_scale": {**at_scale, **scale_t},
+        "roads": len(polys), "worst_overlap_m2": worst,
+        "roads_repaired_by_buffer0": repaired,
+        "restricted_aoi": aoi, "tiles_served": opener.served,
+        "roads_with_ks": len(ks), "dem_roads": len(zs),
+        "limit_used_tiles": {"kept": len(kept), "of": len(tiles4326)},
+        "tile_masks": {"tiles": len(mstats), "pixels_off": mask_bad},
+        "uploaded": len(first), "assess_statistics": assess_stats})
+    _emit(res)
+    return res
+
+
 def _host_profile(fn) -> dict:
     """Share of ``fn``'s host time by step (cProfile, inclusive times of
     the steps' functions; cProfile adds cost to Python calls, not to
@@ -2940,6 +3611,7 @@ def main() -> int:
     runs["quality_path"] = phase_quality_path()
     torch.cuda.empty_cache()
     phase_cog_path()
+    phase_stats_path()
 
     # the times are one forward's calls at the main paths' shapes: both
     # poolers (K2 at its adaptive sampling), the RPN's and the class NMS

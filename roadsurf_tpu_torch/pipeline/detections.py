@@ -336,7 +336,9 @@ def run(cfg: dict, model_cfg: ModelConfig | None = None,
                              score_thresh=score_thresh, rdp_eps=rdp_eps,
                              mask_format=mask_format, device=device,
                              n_devices=n_devices, stats=stats)
-        gdf_4326 = gdf.to_crs(epsg=4326) if len(gdf) else gdf
+        # an empty dataset's file in EPSG:4326 too: evaluate reads its CRS
+        gdf_4326 = gdf.to_crs(epsg=4326) if len(gdf) \
+            else GeoDataFrame(gdf, crs="EPSG:4326")
         p = os.path.join(wd, f"{ds}_detections_at_{thr_tag}_threshold.gpkg")
         write_gpkg(gdf_4326, p, layer=f"{ds}_detections")
         manifest.add(p)

@@ -22,6 +22,7 @@ import time
 import numpy as np
 import pandas as pd
 
+from ..crs import crs_equal
 from ..geom.table import GeoDataFrame
 from ..io import read_excel, read_file, write_file
 from ..utils.config import load_script_config
@@ -358,8 +359,15 @@ def run(cfg: dict) -> list[str]:
                      "exist — run make_detections first (or fix "
                      f"processed_folder={processed!r})")
         sys.exit(1)
+    # one CRS for every frame, the first file's that holds a detection (an
+    # empty file carries no coordinate to read its CRS from): the frames
+    # are taken in the YAML's order, which a rewrite of the file can change
+    crs = next((d.crs for d in frames if len(d)), frames[0].crs)
+    frames = [d if crs_equal(d.crs, crs) else
+              d.to_crs(crs) if len(d) else GeoDataFrame(d, crs=crs)
+              for d in frames]
     predictions = GeoDataFrame(pd.concat(frames, ignore_index=True),
-                               crs=frames[0].crs)
+                               crs=crs)
     predictions["det_class_name"] = [
         get_corresponding_class(c, labels_id)
         for c in predictions["det_class"]]

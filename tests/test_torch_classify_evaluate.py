@@ -22,6 +22,7 @@ Tolerances: none; every comparison is exact, the oracle's band aside.
 
 from __future__ import annotations
 
+import copy
 import functools
 import inspect
 import os
@@ -232,9 +233,6 @@ def test_the_entry_points_read_their_yaml_blocks(workspace, tmp_path):
     block."""
     _, cfg = workspace
     path = tmp_path / "cfg.yaml"
-    # in the blocks' own order: final_metrics takes the CRS of the first
-    # detection file it reads, and an empty one (oth) is written in
-    # EPSG:3857 (ROADMAP Queue C)
     with open(path, "w") as f:
         yaml.safe_dump({"determine_class.py": _determine_class_block(cfg),
                         "final_metrics.py": cfg["final_metrics.py"]}, f,
@@ -246,6 +244,37 @@ def test_the_entry_points_read_their_yaml_blocks(workspace, tmp_path):
         tevaluate.run(cfg["final_metrics.py"])))
     assert sorted(via_main) == sorted(via_run)
     assert [f for f in via_main if via_main[f] != via_run[f]] == []
+
+
+def test_final_metrics_scores_the_same_in_any_order_of_its_files(
+        workspace, tmp_path):
+    """Fault (d): the ``to_evaluate`` block in sorted order (as a YAML
+    rewritten with sorted keys has it) reads the empty ``oth`` file first,
+    which the workspace holds in EPSG:3857 as the reference's
+    make_detections writes it. The reference takes that file's CRS for
+    every detection, finds none on a road and scores balanced F1 0.0; the
+    port brings every frame to the first non-empty file's CRS and scores
+    1.0, as in the block's own order."""
+    _, cfg = workspace
+    fm = copy.deepcopy(cfg["final_metrics.py"])
+    fm["inputs"]["to_evaluate"] = dict(sorted(
+        fm["inputs"]["to_evaluate"].items()))
+    assert next(iter(fm["inputs"]["to_evaluate"])) == "oth"
+
+    def f1b(which):
+        gm = pd.read_csv(tmp_path / which / "outputs" / "final" / "tables"
+                         / "global metrics.csv")
+        return {d: f for d, f in zip(gm["dataset"], gm["f1b"])
+                if d != "baseline"}
+
+    _run_in_copy(workspace, tmp_path / "ref", lambda: jevaluate.run(fm))
+    _run_in_copy(workspace, tmp_path / "port", lambda: tevaluate.run(fm))
+    _run_in_copy(workspace, tmp_path / "yaml", lambda: tevaluate.run(
+        cfg["final_metrics.py"]))
+    port, ref = f1b("port"), f1b("ref")
+    assert port == f1b("yaml")
+    for d in ("trn", "val", "all datasets"):
+        assert port[d] == pytest.approx(1.0) and ref[d] == 0.0, (port, ref)
 
 
 # ---------------------------------------------------------------------------

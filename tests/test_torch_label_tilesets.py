@@ -70,8 +70,34 @@ def raster(g, box, px=PX) -> np.ndarray:
                         x0 + 0.0137, px, y0 + 0.0291, px, h, w).astype(bool)
 
 
+def has_spike(g, tol: float = 1e-8, arm: float = 1e-6) -> bool:
+    """Whether a ring of ``g`` turns back on itself along one line at a
+    vertex (a zero-width spike, at most ``tol`` wide, both arms longer than
+    ``arm``): an invalid ring that covers no area, so no raster sees it, but
+    a later boolean operation along it goes wrong (ROADMAP Queue C, fault
+    (c))."""
+    if g is None or g.is_empty:
+        return False
+    for p in (g.geoms if g.geom_type == "MultiPolygon" else [g]):
+        for ring in (p.exterior_coords, *p.interiors_coords):
+            r = ring[:-1] if len(ring) > 1 and (ring[0] == ring[-1]).all() \
+                else ring
+            r = r - r.mean(0)
+            ab = r - np.roll(r, 1, 0)
+            bc = np.roll(r, -1, 0) - r
+            la, lb = np.hypot(*ab.T), np.hypot(*bc.T)
+            cross = np.abs(ab[:, 0] * bc[:, 1] - ab[:, 1] * bc[:, 0])
+            back = ((ab * bc).sum(1) < 0) & (np.minimum(la, lb) > arm)
+            if (back & (cross <= tol * np.maximum(la, lb))).any():
+                return True
+    return False
+
+
 def _cut_error(p1, p2, diff) -> float:
-    """m² on which ``diff`` differs from p2 minus p1 (raster oracle)."""
+    """m² on which ``diff`` differs from p2 minus p1 (raster oracle);
+    infinite where ``diff`` holds a zero-width spike."""
+    if has_spike(diff):
+        return float("inf")
     box = tuple(np.array(p2.bounds) + [-1, -1, 1, 1])
     want = raster(p2, box) & ~raster(p1, box)
     return float((want != raster(diff, box)).sum() * PX * PX)

@@ -65,8 +65,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_the_import_check_covers_every_module_of_the_port():
-    """The data-parallel, tif2cog, label preparation and tileset modules
-    among them."""
+    """The data-parallel, tif2cog, label preparation, tileset and
+    statistical-branch modules among them."""
     files = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in ("parallel/__init__.py", "parallel/mesh.py",
                    "parallel/dryrun.py", "io/cog.py", "io/objstore.py",
@@ -81,9 +81,54 @@ def test_the_import_check_covers_every_module_of_the_port():
                    "viz/__init__.py", "viz/charts.py",
                    "pipeline/classify.py", "pipeline/evaluate.py",
                    "pipeline/assess.py", "tools/learning_smoke.py",
-                   "tools/quality.py"):
+                   "tools/quality.py", "stats/__init__.py",
+                   "stats/descriptive.py", "stats/pixels.py", "stats/pca.py",
+                   "tiles/rasters.py", "pipeline/stats_prep.py",
+                   "pipeline/stats_analysis.py", "pipeline/sandbox.py",
+                   "pipeline/upload.py"):
         assert os.path.join("roadsurf_tpu_torch", module) in files, module
     assert "chip_smoke.py" in files
+
+
+def test_port_imports_no_scikit_learn():
+    """The statistical branch's PCA is the port's own (``stats/pca.py``, in
+    PyTorch), so no module imports scikit-learn, at module level or
+    inside a function; the card has no scikit-learn."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{path}:{node.lineno} {n}" for n in names
+                    if n == "sklearn" or n.startswith("sklearn.")]
+    assert not bad, bad
+
+
+# the reference's modules whose counterpart in the port has another name:
+# the Pallas kernels' wrappers and the checkpoint helpers
+RENAMED = {"ops/nms_pallas.py": "ops/nms_kernel.py",
+           "ops/roi_align_pallas.py": "ops/roi_align_kernel.py",
+           "utils/checkpoint.py": "utils/weights.py"}
+
+
+def test_every_module_of_the_reference_has_its_counterpart():
+    """The port covers every module of the JAX package, under its name or
+    the one RENAMED gives."""
+    def modules(pkg):
+        base = os.path.join(ROOT, pkg)
+        return {os.path.relpath(os.path.join(d, f), base)
+                for d, _, fs in os.walk(base) for f in fs
+                if f.endswith(".py")}
+    port = modules("roadsurf_tpu_torch")
+    missing = {m for m in modules("roadsurf_tpu")
+               if RENAMED.get(m, m) not in port}
+    assert missing == set(), missing
 
 
 def test_forbidden_matches_the_package_not_the_port():
@@ -171,6 +216,32 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(state_and_cfg,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cog_pipeline.main([str(cog_cfg)])
     assert not (tmp_path / "store").exists()
+    # python -m roadsurf_tpu_torch.pipeline.stats_analysis <config>
+    # [--device] (the PCAs; tests/test_torch_stats*.py pass device="cpu")
+    from roadsurf_tpu_torch.pipeline import stats_analysis
+    from roadsurf_tpu_torch.stats import calculate_pca, pca_procedure
+
+    stats_cfg = tmp_path / "stats.yaml"
+    stats_cfg.write_text(
+        "statistical_analysis.py:\n"
+        "  processed: {processed_folder: absent, input_files: {}}\n"
+        f"  final_folder: {tmp_path / 'final'}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stats_analysis.main([str(stats_cfg)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stats_analysis.run({})
+    assert not (tmp_path / "final").exists()
+    import pandas as pd
+
+    frame = pd.DataFrame({"a": [1.0, 2.0, 4.0], "b": [0.0, 1.0, 0.0],
+                          "c": ["x", "y", "x"]})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calculate_pca(frame, ["a", "b"], "c", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pca_procedure(frame, ["a", "b"], "c", str(tmp_path / "t"),
+                      str(tmp_path / "i"))
+    pca, coor = calculate_pca(frame, ["a", "b"], "c", None, device="cpu")
+    assert coor.shape == (3, 2) and pca.solver == "full"
 
 
 def _module_level(body):
@@ -192,8 +263,10 @@ def test_port_imports_no_pil_at_module_level():
     the best-effort sample drawing of the eval, the fetcher's decoding of
     JPEG and of the PNG kinds its own decoder does not take, and the
     quality chain's synthetic tile service (tools/quality.py, which writes
-    PNG as the reference's does) import Pillow, inside the function that
-    needs it."""
+    PNG as the reference's does), the statistical branch's .webp figures
+    (stats/pca.py, as the reference's) and chip_smoke.py's check that
+    those figures decode import Pillow, inside the function that needs
+    it."""
     bad, inside = [], []
     for path in _port_sources():
         with open(path) as f:
@@ -210,22 +283,28 @@ def test_port_imports_no_pil_at_module_level():
             (bad if id(node) in top else inside).extend(
                 f"{path}:{node.lineno}" for _ in pil)
     assert not bad, bad
-    assert sorted(p.split("roadsurf_tpu_torch/")[-1].split(":")[0]
-                  for p in inside) == ["engine/coco_eval.py",
-                                       "tiles/fetch.py", "tools/quality.py"]
+    assert sorted(os.path.relpath(p.split(":")[0], ROOT).replace(
+        "roadsurf_tpu_torch/", "") for p in inside) == [
+        "chip_smoke.py", "engine/coco_eval.py", "stats/pca.py",
+        "tiles/fetch.py", "tools/quality.py"]
 
 
 # the modules that import pandas: the GeoDataFrame layer (a pandas frame,
 # as the reference's is), the vector I/O that reads and writes it, the
 # label preparation that joins road tables, the classify, evaluate and
-# assess stages (pandas group-bys and metric tables, as the reference's)
-# and the quality chain that reads their CSVs; chip_smoke.py reads
+# assess stages (pandas group-bys and metric tables, as the reference's),
+# the quality chain that reads their CSVs and the statistical branch (pixel
+# frames, per-road statistics and the PCA's tables, the DEM chain's URL
+# list, the sandbox's joins, as the reference's); chip_smoke.py reads
 # labels_id.json with pd.read_json, as the pipeline's users do
 PANDAS_MODULES = {"geom/table.py", "geom/cleanup.py", "io/geojson.py",
                   "io/shapefile.py", "io/xlsx.py", "io/gpkg.py",
                   "pipeline/label_prep.py", "pipeline/classify.py",
                   "pipeline/evaluate.py", "pipeline/assess.py",
-                  "tools/quality.py", "chip_smoke.py"}
+                  "tools/quality.py", "stats/descriptive.py",
+                  "stats/pixels.py", "stats/pca.py", "tiles/rasters.py",
+                  "pipeline/stats_prep.py", "pipeline/stats_analysis.py",
+                  "pipeline/sandbox.py", "chip_smoke.py"}
 
 
 def test_port_imports_no_pandas():
