@@ -147,13 +147,33 @@ exits non-zero:
    shard and batch; beside it, the differences of both from the
    one-device engine at B=16 (random weights: near-equal scores may
    reorder), and tiles/s of the three.
-16. ``f32_forward``: the fast and the parity profile in float32 (random
+16. ``scan_path``: the multi-batch dispatch, CUDA graphs that replay the
+   kernels (``utils/graphs.py``), one line a part. (a) The fast profile
+   (bf16, B=64, ``main_path``'s weights and tiles) through
+   ``TileInferenceEngine`` at ``scan_k`` 16 (bench.py's k) and at 1: the
+   outputs bit for bit equal, K1 twice for every batch a group runs (the
+   tail group's empty batches included); tiles/s over 32 full batches
+   (CUDA events); over one group (16 batches) the device split and busy
+   share (torch.profiler) and K1's launches read from the kernel names,
+   equal to the counters' (2 x k); the graph's capture seconds and
+   memory pool. (b) The parity profile (bf16, B=16, bits) at 4 and 1,
+   the same checks with K2 and K3 twice a batch. (c) The sharded engine
+   (two replicas on cuda:0, fast, B=64) at scan_k 4, bit for bit equal to
+   one device's at the shard's batch. (d) ``make_train_scan_step`` (the
+   YAML's model, bf16, 800 px, B=8, k=4) against 4 single steps from
+   copies of one state with the same draws, under
+   ``cudnn.deterministic``: parameters, velocity and the last metrics bit
+   for bit (else the training step tests' tolerances, with the eager
+   steps' own repeatability beside them), twice; s/step of both, and a
+   scan's K2 8, K5 8 and K3 4 launches from the profiler and the
+   counters.
+17. ``f32_forward``: the fast and the parity profile in float32 (random
    weights, the CPU tests' narrow heads, TF32 off) through
    ``forward_inference`` on 4 and 2 tiles, through the kernels (K1; K2
    and K3) and through their plain versions: valid flags and classes
    equal, boxes within 1e-4 px, mask logits within 1e-4·max(1,
    max|logit| / 6.4).
-17. ``quality_path``: the first runs with weights trained on the card.
+18. ``quality_path``: the first runs with weights trained on the card.
    ``tools.learning_smoke`` (500 steps from scratch on synthetic
    rectangles, 64 px, B=16; gates: the last 50 steps' mean total below
    0.2x the first step's and below 1.0, at least 12 of 16 instances
@@ -164,14 +184,14 @@ exits non-zero:
    AP, make_detections with the checkpoint and final metrics under the
    fast and the exact profile; gate: each profile's balanced F1 at
    least 0.15 over the baseline's). K1, K3 and K5 must have run.
-18. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
+19. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
    image (10000² × 4 uint16, EPSG:2056, a nodata border): the host's
    inverse map, the gather (equal to numpy's of the same indices),
    ``band_stats`` (min/max equal, mean/std rtol 1e-5 of float64 numpy),
    ``scale_to_byte`` (equal to its CPU version), each timed; then
    ``Tif2Cog.run`` over a ``LocalStore`` on three 2000² images: steps
    1-3, a rerun that skips, COGs in EPSG:3857 with 8 overviews.
-19. ``stats_path``: the statistical branch, config/config_stats.yaml's
+20. ``stats_path``: the statistical branch, config/config_stats.yaml's
    chain (``stats_chain``) on ``write_scene``'s grid: ``pipeline.
    stats_prep`` (the overlap-free road polygons, the restricted AOI),
    ``pipeline.label_prep`` (the tiles over them), ``pipeline.tilesets``
@@ -2477,6 +2497,326 @@ def phase_dp_infer() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the multi-batch dispatch: CUDA graphs of k forwards or k training steps
+
+# bench.py:80-90's scan_k: 16 for the fast profile, 4 for the parity one;
+# scripts/bench_training.py's k for training steps
+SCAN_K_FAST, SCAN_K_PARITY, SCAN_K_TRAIN = 16, 4, 4
+SCAN_TRAIN_SIDE, SCAN_TRAIN_B = 800, 8
+# kernel name -> count name, for the kernels a profiler window shows (K1
+# and K2 share their device code: K1 on the fast paths, K2 on the parity
+# and training paths; a K3 launch is one pair and one sweep kernel)
+PROFILED = {"roi_align_staged_kernel": "pooler",
+            "nms_sweep_kernel": "nms",
+            "roi_align_backward_tile_kernel": "roi_align_backward"}
+
+
+def _profiled_launches(kernels) -> dict:
+    """Launches by kernel in a profiler window, from the kernels' names."""
+    out = {v: 0 for v in PROFILED.values()}
+    for name, _, count in kernels:
+        for key, label in PROFILED.items():
+            if key in name:
+                out[label] += count
+    return out
+
+
+def _main_tiles(batch: int, sizes: list) -> list:
+    """The random tiles ``_drive`` gives a main path of these sizes."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, (n, TILE, TILE, 3), np.uint8)
+            for n in sizes]
+
+
+def _equal_outputs(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        sorted(x) == sorted(y) and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+            for k in y) for x, y in zip(a, b))
+
+
+def _scan_engine_case(label: str, cfg, batch: int, k: int, sizes: list,
+                      mask_format: str, per_batch: dict, pooler: str
+                      ) -> dict:
+    """One profile through ``TileInferenceEngine`` at ``scan_k`` k and at
+    1, one state and one set of weights (``_drive``'s): over the main
+    path's tiles (``sizes``) the outputs bit for bit equal and the
+    launches ``per_batch`` for every batch a group runs (the tail group's
+    empty ones included); over 2k full batches tiles/s from CUDA events;
+    over one group (k batches) the profiler's device split and the
+    launches read from its kernel names, held equal to the counters';
+    the graph's capture seconds and memory pool."""
+    from roadsurf_tpu_torch.engine import TileInferenceEngine
+    from roadsurf_tpu_torch.utils.weights import from_jax_params
+
+    state = from_jax_params(_random_tree(cfg, torch.Generator()
+                                         .manual_seed(0)))
+    tiles = _main_tiles(batch, sizes)
+    rng = np.random.default_rng(1)
+    timing = [rng.integers(0, 256, (batch, TILE, TILE, 3), np.uint8)
+              for _ in range(2 * k)]
+    runs, outs = {}, {}
+    for scan_k in (k, 1):
+        eng = TileInferenceEngine(state, cfg, batch_size=batch,
+                                  mask_format=mask_format, scan_k=scan_k)
+        t0 = time.perf_counter()
+        list(eng.run(iter(timing[:scan_k])))       # warm-up (the capture)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        _reset_counts()
+        outs[scan_k] = list(eng.run(iter(tiles)))
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        ran = -(-len(tiles) // scan_k) * scan_k
+        want = {c: per_batch.get(c, 0) * ran for c in counts}
+        _require(counts == want, f"scan_path {label} scan_k={scan_k}: "
+                 f"launches {counts}, expected {want}")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        list(eng.run(iter(timing)))
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        before = _read_counts()
+        kernels, wall = _device_kernels(
+            lambda: list(eng.run(iter(timing[:k]))))
+        after = _read_counts()
+        seen = _profiled_launches(kernels)
+        counted = {c: after[c] - before[c] for c in after
+                   if after[c] != before[c]}
+        _require(seen["pooler"] == counted.get(pooler, 0) == 2 * k
+                 and seen["nms"] == counted.get("nms", 0)
+                 == per_batch.get("nms", 0) * k,
+                 f"scan_path {label} scan_k={scan_k}: the profiler saw "
+                 f"{seen}, the counters {counted}, over {k} batches")
+        graph = eng.replicas[0].graph
+        runs[f"scan_k_{scan_k}"] = {
+            "tiles_per_s": batch * len(timing) / (ms / 1e3),
+            "event_ms": ms, "first_call_s": first_s,
+            "launches": counts, "profiled_launches": seen,
+            "capture_s": graph.capture_s if graph else None,
+            "graph_pool_bytes": graph.pool_bytes if graph else None,
+            "graph_launches": graph.launches if graph else None,
+            "h2d_s": eng.stats["h2d_s"], "d2h_s": eng.stats["d2h_s"],
+            **_split(kernels, wall)}
+        del eng
+        torch.cuda.empty_cache()
+    _require(_equal_outputs(outs[k], outs[1]),
+             f"scan_path {label}: scan_k={k} differs from scan_k=1")
+    return {"case": label, "batch": batch, "scan_k": k,
+            "mask_format": mask_format, "batches": sizes,
+            "timed_batches": len(timing), "bitwise_equal_to_scan_k_1": True,
+            "launches": runs[f"scan_k_{k}"]["launches"], **runs}
+
+
+def _scan_sharded_case() -> dict:
+    """The sharded engine (two replicas on cuda:0, fast profile, B=64) at
+    scan_k 4 against one device's engine at the shard's batch (32) and
+    scan_k 4 fed the shards' rows: bit for bit, as ``dp_infer`` holds the
+    eager engines."""
+    from roadsurf_tpu_torch.engine import TileInferenceEngine
+    from roadsurf_tpu_torch.models import fast_profile
+    from roadsurf_tpu_torch.utils.weights import from_jax_params
+
+    cfg = fast_profile(post_nms_topk=32)
+    k, b = SCAN_K_PARITY, B // 2
+    state = from_jax_params(_random_tree(cfg, torch.Generator()
+                                         .manual_seed(0)))
+    tiles = _main_tiles(B, [B] * 6 + [40])
+
+    def shard_rows(x):
+        full = np.concatenate([x, np.zeros((B - len(x),) + x.shape[1:],
+                                           np.uint8)])
+        return [full[:b], full[b:]]
+
+    feed = {"sharded": (["cuda:0", "cuda:0"], B, tiles),
+            "one_device": (["cuda:0"], b,
+                           [r for x in tiles for r in shard_rows(x)])}
+    out, counts, tps, graphs = {}, {}, {}, {}
+    for label, (devs, bs, batches) in feed.items():
+        eng = TileInferenceEngine(state, cfg, batch_size=bs, devices=devs,
+                                  scan_k=k)
+        list(eng.run(iter(batches[:k])))            # warm-up (the captures)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out[label] = list(eng.run(iter(batches)))
+        torch.cuda.synchronize()
+        tps[label] = sum(len(x) for x in tiles) / (time.perf_counter() - t0)
+        counts[label] = _read_counts()
+        ran = -(-len(batches) // k) * k * len(devs)
+        want = {c: (2 * ran if c == "roi_align" else 0)
+                for c in counts[label]}
+        _require(counts[label] == want, f"scan_path sharded {label}: "
+                 f"launches {counts[label]}, expected {want}")
+        graphs[label] = [{"capture_s": r.graph.capture_s,
+                          "graph_pool_bytes": r.graph.pool_bytes}
+                         for r in eng.replicas]
+        del eng
+    regrouped = [{key: np.concatenate([o[key] for o in out["one_device"][
+        2 * i:2 * i + 2]])[:len(x)] for key in out["one_device"][0]}
+        for i, x in enumerate(tiles)]
+    _require(_equal_outputs(out["sharded"], regrouped),
+             "scan_path: the sharded engine at scan_k 4 differs from one "
+             "device's at the shard's batch")
+    return {"case": "sharded", "devices": ["cuda:0", "cuda:0"], "batch": B,
+            "shard": b, "scan_k": k, "bitwise_equal_to_one_device": True,
+            "tiles_per_s": tps, "graphs": graphs,
+            "launches_by_engine": counts, "launches": counts["sharded"]}
+
+
+def _leaves_equal(a, b) -> bool:
+    from roadsurf_tpu_torch.engine.train import leaves
+
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(leaves(a),
+                                                           leaves(b)))
+
+
+def _scan_train_case() -> dict:
+    """``make_train_scan_step`` (the YAML's model at full width, bf16,
+    800 px, B=8, k=4) against 4 single steps of ``train_step``, from copies
+    of one state, with each step's draws from its generator, under
+    ``cudnn.deterministic``: parameters, velocity and the last step's
+    metrics bit for bit (else the training step tests' tolerances, with
+    the eager steps' own repeatability beside them), twice (steps 0-3 and
+    4-7). s/step of both from CUDA events, the launches a scan from the
+    profiler's kernel names and the counters, the graph's capture seconds
+    and pool."""
+    from roadsurf_tpu_torch.engine import train as tt
+    from roadsurf_tpu_torch.models import init_params
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+    from roadsurf_tpu_torch.utils.weights import from_jax_train_params
+
+    cfg = from_detectron2_yaml(os.path.join(ROOT, YAML))
+    k, S, Bt = SCAN_K_TRAIN, SCAN_TRAIN_SIDE, SCAN_TRAIN_B
+    params = from_jax_train_params(init_params(cfg, torch.Generator()
+                                               .manual_seed(7)))
+
+    def fresh():
+        return tt.init_train_state(params, cfg, seed=7, device="cuda")
+
+    raw = [_dp_batch(Bt, S, seed=20 + i) for i in range(2 * k)]
+    dev = [{n: torch.from_numpy(v).cuda() for n, v in b.items()}
+           for b in raw]
+    stacked = [{n: torch.stack([d[n] for d in dev[j:j + k]])
+                for n in dev[0]} for j in (0, k)]
+    step = tt.train_step(cfg, S)
+    scan = tt.make_train_scan_step(cfg, S, k)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        step(fresh(), dev[0])                      # warm the eager step
+        single, scanned, again = fresh(), fresh(), fresh()
+        rounds = []
+        for j in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(k):
+                one_m = step(single, dev[j * k + i])
+            end.record()
+            torch.cuda.synchronize()
+            single_ms = start.elapsed_time(end)
+            for i in range(k):
+                again_m = step(again, dev[j * k + i])
+            t0 = time.perf_counter()
+            start.record()
+            scan_m = scan(scanned, stacked[j])
+            end.record()
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t0
+            graph = scan.graphs[(Bt, 16)].graph
+            rounds.append({
+                "steps": [j * k, j * k + k - 1],
+                "single_s_per_step": single_ms / 1e3 / k,
+                "scanned_s_per_step": start.elapsed_time(end) / 1e3 / k,
+                "call_s": call_s,
+                "params_bitwise": _leaves_equal(scanned["params"],
+                                                single["params"]),
+                "velocity_bitwise": _leaves_equal(scanned["velocity"],
+                                                  single["velocity"]),
+                "metrics_bitwise": all(torch.equal(scan_m[n], one_m[n])
+                                       for n in one_m),
+                "eager_repeat_bitwise": _leaves_equal(again["params"],
+                                                      single["params"]),
+                "last_losses": {n: float(v) for n, v in scan_m.items()}})
+        before = _read_counts()
+        kernels, wall = _device_kernels(lambda: scan(scanned, stacked[0]))
+        after = _read_counts()
+        eager_kernels, eager_wall = _device_kernels(
+            lambda: [step(single, dev[i]) for i in range(k)])
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    bitwise = all(r["params_bitwise"] and r["velocity_bitwise"]
+                  and r["metrics_bitwise"] for r in rounds)
+    worst = {}
+    if not bitwise:
+        # the training step tests' tolerances (tests/test_torch_train_
+        # step.py): losses rtol 1e-5, velocity 1e-4·max|v| a leaf
+        for (path, v), (_, w) in zip(tt.leaves(scanned["velocity"]),
+                                     tt.leaves(single["velocity"])):
+            scale = float(w.abs().max())
+            if scale:
+                worst[str(path)] = float((v - w).abs().max()) / scale
+        loss = max(abs(float(scan_m[n]) - float(one_m[n]))
+                   / (1e-6 + 1e-5 * abs(float(one_m[n]))) for n in one_m)
+        _require(max(worst.values()) <= 1e-4 and loss <= 1.0,
+                 f"scan_path training: beyond the step tests' tolerances: "
+                 f"velocity {max(worst.values())}, losses {loss}; {rounds}")
+    counted = {c: after[c] - before[c] for c in after}
+    want = {c: k * STEP_LAUNCHES.get(c, 0) for c in after}
+    seen = _profiled_launches(kernels)
+    _require(counted == want and seen == {
+        "pooler": want["roi_align_blocked"], "nms": want["nms"],
+        "roi_align_backward": want["roi_align_backward"]},
+        f"scan_path training: the counters {counted} and the profiler "
+        f"{seen} a scan, expected {want}")
+    return {"case": "train", "profile": f"from_detectron2_yaml({YAML!r})",
+            "image_size": S, "batch": Bt, "scan_k": k,
+            "cudnn_deterministic": True, "bitwise_equal": bitwise,
+            "worst_velocity_over_max": max(worst.values()) if worst else 0.0,
+            "rounds": rounds, "capture_s": graph.capture_s,
+            "graph_pool_bytes": graph.pool_bytes,
+            "graph_launches": graph.launches,
+            "profiled_launches": seen, "launches": counted,
+            "scanned": _split(kernels, wall),
+            "single": _split(eager_kernels, eager_wall)}
+
+
+def phase_scan_path() -> dict:
+    """scan_path: the multi-batch dispatch, each part a JSON line. (a) the
+    fast profile (bf16, B=64) through the engine at scan_k 16 and 1; (b)
+    the parity profile (bf16, B=16, bits) at scan_k 4 and 1; (c) the
+    sharded engine at scan_k 4; (d) ``make_train_scan_step`` at k=4
+    against single steps."""
+    from roadsurf_tpu_torch.models import fast_profile
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+
+    t0 = time.perf_counter()
+    parts = [
+        _scan_engine_case("fast", fast_profile(post_nms_topk=32), B,
+                          SCAN_K_FAST, [B] * 6 + [40], "logits",
+                          {"roi_align": 2}, "roi_align"),
+        _scan_engine_case("parity", from_detectron2_yaml(
+            os.path.join(ROOT, YAML)), PB, SCAN_K_PARITY, [PB] * 3 + [9],
+            "bits", {"roi_align_blocked": 2, "nms": 2},
+            "roi_align_blocked")]
+    for part in parts:
+        _emit({"phase": "scan_path", **part})
+    torch.cuda.empty_cache()
+    parts.append(_scan_sharded_case())
+    _emit({"phase": "scan_path", **parts[-1]})
+    torch.cuda.empty_cache()
+    parts.append(_scan_train_case())
+    _emit({"phase": "scan_path", **parts[-1]})
+    res = {"phase": "scan_path", "seconds": time.perf_counter() - t0,
+           "launches": _sum_counts(*[p["launches"] for p in parts])}
+    _emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # float32 forwards
 
 F32_TILES = {"fast": 4, "parity": 2}
@@ -3605,6 +3945,8 @@ def main() -> int:
     runs["dp_train_run"] = phase_dp_train_run(runs["train_path"])
     torch.cuda.empty_cache()
     runs["dp_infer"] = phase_dp_infer()
+    torch.cuda.empty_cache()
+    runs["scan_path"] = phase_scan_path()
     torch.cuda.empty_cache()
     runs["f32_forward"] = phase_f32_forward()
     torch.cuda.empty_cache()

@@ -1,3 +1,3 @@
-from .transform import CRS, crs_equal, epsg_code, transform_xy
+from .transform import CRS, Transformer, crs_equal, epsg_code, transform_xy
 
-__all__ = ["CRS", "crs_equal", "epsg_code", "transform_xy"]
+__all__ = ["CRS", "Transformer", "crs_equal", "epsg_code", "transform_xy"]

@@ -256,3 +256,18 @@ def transform_xy(src, dst, x, y):
         return np.asarray(x, np.float64), np.asarray(y, np.float64)
     lon, lat = _to_wgs84(s, x, y)
     return _from_wgs84(d, lon, lat)
+
+
+class Transformer:
+    """A pyproj.Transformer-alike between two of EPSG:2056, 3857 and 4326,
+    in (x, y) order (the reference's ``crs.Transformer``)."""
+
+    def __init__(self, src, dst):
+        self.src, self.dst = CRS(src), CRS(dst)
+
+    @classmethod
+    def from_crs(cls, src, dst, always_xy: bool = True) -> "Transformer":
+        return cls(src, dst)
+
+    def transform(self, x, y):
+        return transform_xy(self.src, self.dst, x, y)

@@ -47,6 +47,7 @@
 #include <cuda_runtime.h>
 
 #include "bulk_copy.cuh"
+#include "smem_cap.cuh"
 
 namespace {
 
@@ -389,14 +390,9 @@ int launch_gemm(const void* a, int lda, const void* wt, int Kp,
       !make_map(&map_w, wt, N, Kp, Kp, BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = kRingBytes + 1024;
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        int8_gemm_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr = true;
-  }
+  const cudaError_t err = raise_smem_cap(
+      reinterpret_cast<const void*>(int8_gemm_kernel<BN>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = static_cast<long long>((M + kBM - 1) / kBM) *
                           ((N + BN - 1) / BN);
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);

@@ -44,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include "bulk_copy.cuh"
+#include "smem_cap.cuh"
 
 namespace {
 
@@ -262,8 +263,8 @@ int nms_sweep_words(const void* scores, const void* words, void* keep,
   const long long smem = ring * warps;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nms_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t err = raise_smem_cap(
+        reinterpret_cast<const void*>(nms_sweep_kernel),
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -451,9 +451,10 @@ int launch_tile(const CUtensorMap& map, const Levels& lv, long long smem,
                 const void* lvl, void* out, int R, int C, int P, int sampling,
                 int per_image, int nchunks, int part_bins, int nparts) {
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        roi_align_backward_tile_kernel<kCC, kF32, kDF32>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err = raise_smem_cap(
+        reinterpret_cast<const void*>(
+            roi_align_backward_tile_kernel<kCC, kF32, kDF32>),
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   roi_align_backward_tile_kernel<kCC, kF32, kDF32>

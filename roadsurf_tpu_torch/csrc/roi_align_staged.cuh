@@ -76,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "bulk_copy.cuh"
+#include "smem_cap.cuh"
 
 namespace {
 
@@ -624,9 +625,8 @@ int launch(Kernel kernel, dim3 grid, int threads, long long smem,
            const float* boxes, const int* lvl, void* out, int R,
            int C, int P, int sampling, int side) {
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = raise_smem_cap(
+        reinterpret_cast<const void*>(kernel), static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<grid, threads, static_cast<size_t>(smem), stream>>>(

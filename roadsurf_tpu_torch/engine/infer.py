@@ -1,8 +1,8 @@
 """Tile-inference engine: the throughput-critical loop, on one device or
 sharded over several.
 
-Port of the reference's ``TileInferenceEngine`` (engine/infer.py there)
-without its scan-k dispatch:
+Port of the reference's ``TileInferenceEngine`` (engine/infer.py there),
+its scan-k dispatch included:
 
 * ``devices=[...]``, the counterpart of the reference's ``devices=`` and
   its ``("data",)`` mesh: one replica of the state a device, each batch
@@ -22,11 +22,22 @@ without its scan-k dispatch:
   its rows of a pinned (B, bytes) buffer, and unpacked on the host with
   numpy views;
 * the tail batch is zero-padded to the batch size and trimmed after;
+* ``scan_k`` > 1, the reference's scan-k dispatch: ``scan_k`` padded
+  batches make a group, the tail group padded with zero batches of
+  ``n = 0`` that are dropped after the fetch, and ``in_flight`` counts
+  groups. On CUDA each replica replays a CUDA graph of ``scan_k``
+  forwards (``models.mask_rcnn.capture_scan``, captured at its first
+  group) on its side stream: a group is one pinned (k, shard, H, W, 3)
+  slot a replica, one host-to-device copy into the graph's static input,
+  one replay into a static packed (k, shard, bytes) output and one
+  device-to-host copy a shard. A failed capture raises. ``scan_k=1`` is
+  the eager loop above;
 * ``stats`` keeps the host's waits: ``h2d_s`` (staging + issuing the
   upload) and ``d2h_s`` (waiting for a batch's result), beside
   ``tiles_seen`` and ``elapsed``.
 
-On the CPU (``device="cpu"``) the same loop runs synchronously.
+On the CPU (``device="cpu"``) the same loop runs synchronously, a group
+as its forwards one after the other.
 ``prefetch_iter`` (the reference's) runs a producer, such as the tile
 decode of ``pipeline/detections.py``, in a thread ahead of the engine.
 """
@@ -43,7 +54,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.mask_rcnn import check_config, forward_prepared
+from ..models.mask_rcnn import capture_scan, check_config, forward_prepared
 from ..utils.device import compute_dtype, resolve_device
 from ..utils.weights import state_to
 
@@ -118,13 +129,14 @@ class _Replica:
         self.stream = torch.cuda.Stream(device) \
             if device.type == "cuda" else None
         self.in_bufs: list = [None] * slots
+        self.graph = None           # the scan-k graph (CUDA, scan_k > 1)
 
 
 class TileInferenceEngine:
     """Batched, pipelined detector inference on one device, or sharded over
     ``devices``.
 
-    >>> eng = TileInferenceEngine(state, cfg, batch_size=64)
+    >>> eng = TileInferenceEngine(state, cfg, batch_size=64, scan_k=16)
     >>> for dets in eng.run(tile_iterator):  # dicts of numpy arrays
     ...     consume(dets)
     """
@@ -132,7 +144,7 @@ class TileInferenceEngine:
     def __init__(self, state: dict, cfg: ModelConfig, batch_size: int = 64,
                  with_masks: bool = True, in_flight: int = 2,
                  mask_format: str = "logits", device="cuda",
-                 devices=None):
+                 devices=None, scan_k: int = 1):
         devices = [resolve_device(d) for d in (devices or [device])]
         if len({d.type for d in devices}) != 1:
             raise ValueError(f"devices of one type expected: {devices}")
@@ -146,11 +158,12 @@ class TileInferenceEngine:
         self.cfg = cfg
         self.batch_size = batch_size
         self.in_flight = max(1, in_flight)
+        self.scan_k = max(1, int(scan_k))
         self.with_masks = with_masks
         self.mask_format = mask_format
         self.cuda = self.device.type == "cuda"
         # in_flight + 1 pinned slots: a slot is reused only after the batch
-        # that last used it was drained (its events waited on)
+        # (or group) that last used it was drained (its events waited on)
         self._slots = self.in_flight + 1
         self.replicas = [_Replica(state, d, compute_dtype(cfg), self._slots)
                          for d in devices]
@@ -231,22 +244,142 @@ class TileInferenceEngine:
         self.tiles_seen += n
         return _unpack(buf, meta, n)
 
+    def _padded(self, images) -> tuple[np.ndarray, int]:
+        images = np.asarray(images, np.uint8)
+        n = images.shape[0]
+        if not 0 < n <= self.batch_size:
+            raise ValueError(f"batch of {n} tiles; 1..{self.batch_size}"
+                             " expected")
+        if n < self.batch_size:
+            pad = np.zeros((self.batch_size - n,) + images.shape[1:],
+                           np.uint8)
+            images = np.concatenate([images, pad])
+        return images, n
+
+    def _stage_group(self, slot: int, i: int, images: np.ndarray):
+        """Batch i of the group in ``slot``: each replica's rows into its
+        (k, shard, H, W, 3) host buffer, pinned on CUDA."""
+        t0 = time.perf_counter()
+        b = self.shard
+        shape = (self.scan_k, b) + images.shape[1:]
+        for r, rep in enumerate(self.replicas):
+            buf = rep.in_bufs[slot]
+            if buf is None or buf.shape != shape:
+                if i:
+                    raise ValueError(f"tiles of {images.shape[1:]} in a "
+                                     f"group of {tuple(buf.shape[2:])}")
+                buf = torch.empty(shape, dtype=torch.uint8,
+                                  pin_memory=self.cuda)
+                rep.in_bufs[slot] = buf
+            buf.numpy()[i] = images[r * b:(r + 1) * b]
+        self.stats["h2d_s"] += time.perf_counter() - t0
+
+    def _scan_graph(self, rep: _Replica, shape: tuple):
+        """The replica's graph of ``scan_k`` packed forwards at ``shape``,
+        captured at its first group (and again if the tiles' size
+        changes); ``graph.meta`` unpacks its rows."""
+        if rep.graph is None or tuple(rep.graph.static_in.shape) != shape:
+            rep.graph = None            # its pool goes before the next
+            meta = []
+
+            def per_slice(x):
+                packed, meta[:] = _pack(self._forward(rep, x))
+                return {"packed": packed}
+
+            rep.graph = capture_scan(per_slice, shape, rep.device)
+            rep.graph.meta = meta
+        return rep.graph
+
+    def _dispatch_group(self, slot: int, ns: list):
+        """Run the group staged in ``slot``; -> (host (replicas, k, shard,
+        bytes) buffer, meta, ns, events)."""
+        if not self.cuda:
+            parts = []
+            with torch.inference_mode():
+                for rep in self.replicas:
+                    x = rep.in_bufs[slot]
+                    packed = [_pack(self._forward(rep, x[i]))
+                              for i in range(self.scan_k)]
+                    parts.append(torch.stack([p for p, _ in packed]))
+            return torch.stack(parts).numpy(), packed[0][1], ns, []
+        host = self._out_bufs[slot]
+        done = []
+        for r, rep in enumerate(self.replicas):
+            rep.stream.wait_stream(torch.cuda.current_stream(rep.device))
+            with torch.inference_mode(), torch.cuda.device(rep.device), \
+                    torch.cuda.stream(rep.stream):
+                staged = rep.in_bufs[slot]
+                graph = self._scan_graph(rep, tuple(staged.shape))
+                t0 = time.perf_counter()
+                graph.static_in.copy_(staged, non_blocking=True)
+                self.stats["h2d_s"] += time.perf_counter() - t0
+                graph.replay()
+                out = graph.outputs["packed"]           # (k, shard, bytes)
+                shape = (len(self.replicas),) + tuple(out.shape)
+                if host is None or tuple(host.shape) != shape:
+                    host = torch.empty(shape, dtype=torch.uint8,
+                                       pin_memory=True)
+                    self._out_bufs[slot] = host
+                # ONE d2h copy a shard
+                host[r].copy_(out, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(rep.stream)
+                done.append(ev)
+        return host.numpy(), graph.meta, ns, done
+
+    def _drain_group(self, item) -> list:
+        buf, meta, ns, done = item
+        t0 = time.perf_counter()
+        for ev in done:
+            ev.synchronize()
+        self.stats["d2h_s"] += time.perf_counter() - t0
+        out = []
+        for i, n in enumerate(ns):
+            if n:                       # the tail group's empty batches go
+                self.tiles_seen += n
+                out.append(_unpack(np.concatenate(buf[:, i]), meta, n))
+        return out
+
+    def _run_groups(self, image_iter):
+        queue = collections.deque()
+        t0 = time.perf_counter()
+        ns: list = []
+        for images in image_iter:
+            images, n = self._padded(images)
+            self._stage_group(self._n_dispatched % self._slots, len(ns),
+                              images)
+            ns.append(n)
+            if len(ns) == self.scan_k:
+                slot = self._n_dispatched % self._slots
+                self._n_dispatched += 1
+                queue.append(self._dispatch_group(slot, ns))
+                ns = []
+                while len(queue) > self.in_flight:
+                    yield from self._drain_group(queue.popleft())
+        if ns:                          # tail: pad to k empty batches
+            slot = self._n_dispatched % self._slots
+            shape = self.replicas[0].in_bufs[slot].shape[2:]
+            while len(ns) < self.scan_k:
+                self._stage_group(slot, len(ns), np.zeros(
+                    (self.batch_size,) + tuple(shape), np.uint8))
+                ns.append(0)
+            self._n_dispatched += 1
+            queue.append(self._dispatch_group(slot, ns))
+        while queue:
+            yield from self._drain_group(queue.popleft())
+        self.elapsed += time.perf_counter() - t0
+
     def run(self, image_iter):
         """Consume an iterator of (B', H, W, 3) uint8 arrays (B' ≤ batch
         size; the tail batch is padded and trimmed transparently); yields
         per-batch dicts of numpy detection arrays."""
+        if self.scan_k > 1:
+            yield from self._run_groups(image_iter)
+            return
         queue = collections.deque()
         t0 = time.perf_counter()
         for images in image_iter:
-            images = np.asarray(images, np.uint8)
-            n = images.shape[0]
-            if not 0 < n <= self.batch_size:
-                raise ValueError(f"batch of {n} tiles; 1..{self.batch_size}"
-                                 " expected")
-            if n < self.batch_size:
-                pad = np.zeros((self.batch_size - n,) + images.shape[1:],
-                               np.uint8)
-                images = np.concatenate([images, pad])
+            images, n = self._padded(images)
             queue.append(self._dispatch(images, n))
             while len(queue) > self.in_flight:
                 yield self._drain(queue.popleft())

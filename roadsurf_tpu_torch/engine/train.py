@@ -15,9 +15,11 @@ What differs from the reference, and why:
   so a resumed run draws what the uninterrupted one would have.
 * **One step per config and size** (:func:`train_step`, cached) replaces
   the reference's ``jitted_train_step``: PyTorch runs eagerly, there is
-  nothing to compile. ``make_train_scan_step`` (k steps in one XLA
-  dispatch) was a device for the TPU's dispatch latency and has no
-  counterpart.
+  nothing to compile. :func:`make_train_scan_step` (k steps in one XLA
+  dispatch there) is k steps in one CUDA graph here, replayed with one
+  host call (``utils/graphs.py``); each step's uniforms are drawn outside
+  the graph and its learning rate is a device tensor, so the k steps
+  compute what k calls of the step compute.
 * **FrozenBN** is folded into each backbone conv inside autograd every
   step (``utils.weights.fold_unit``), as the reference folds it inside its
   forward, so the gradient reaches ``w`` as there; frozen leaves (every
@@ -44,12 +46,12 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..models.anchors import all_level_anchors, box_iou, get_deltas
+from ..models.anchors import all_level_anchors, anchors_on, box_iou, \
+    get_deltas
 from ..models.config import ModelConfig
 from ..models.fpn import fpn_forward
 from ..models.mask_rcnn import preprocess
@@ -57,7 +59,8 @@ from ..models.resnet import resnet_forward
 from ..models.roi_heads import box_head_forward, mask_head_forward
 from ..models.rpn import rpn_head_forward, select_proposals
 from ..ops.nms import top_k
-from ..utils.device import compute_dtype
+from ..utils.device import compute_dtype, device_constant, resolve_device
+from ..utils.graphs import CapturedGraph, storage_key
 from ..utils.weights import fold_unit
 
 
@@ -155,7 +158,7 @@ def crop_mask_targets(gt_masks, boxes, out: int, owner=None):
     if owner is None:
         owner = torch.arange(M, device=dev)
     u = (torch.arange(out, dtype=torch.float32, device=dev) + 0.5) \
-        / torch.tensor(float(out), device=dev)
+        / device_constant(float(out), dev, torch.float32)
     x = boxes[:, 0:1] + u[None, :] * (boxes[:, 2:3] - boxes[:, 0:1])
     y = boxes[:, 1:2] + u[None, :] * (boxes[:, 3:4] - boxes[:, 1:2])
     px = (x - 0.5).clamp(0.0, S - 1.0)
@@ -252,9 +255,12 @@ def _remat(cfg):
 
 
 @functools.lru_cache(maxsize=16)
-def _anchors(image_size: int, cfg: ModelConfig):
-    return all_level_anchors(image_size, cfg.fpn_strides, cfg.anchor_sizes,
-                             cfg.anchor_aspect_ratios, cfg.anchor_offset)
+def _anchors(image_size: int, cfg: ModelConfig, device: torch.device):
+    """The levels' anchors on ``device`` and their concatenation, made
+    once (see ``utils.device.device_constant``)."""
+    levels = anchors_on(image_size, cfg.fpn_strides, cfg.anchor_sizes,
+                        cfg.anchor_aspect_ratios, cfg.anchor_offset, device)
+    return levels, torch.cat(levels, dim=0)
 
 
 def compute_losses(params: dict, batch: dict, draws: dict,
@@ -286,8 +292,7 @@ def compute_losses(params: dict, batch: dict, draws: dict,
     fpn_feats = remat(fpn_forward, fpn, feats)
     logits, deltas = rpn_head_forward(_cast(params["rpn"], dtype), fpn_feats,
                                       cfg.num_anchors)
-    anchors_np = _anchors(S, cfg)
-    anchors = torch.from_numpy(np.concatenate(anchors_np, axis=0)).to(dev)
+    level_anchors, anchors = _anchors(S, cfg, dev)
     all_logits = torch.cat(logits, dim=1).float()
     all_deltas = torch.cat(deltas, dim=1).float()
 
@@ -314,7 +319,7 @@ def compute_losses(params: dict, batch: dict, draws: dict,
     with torch.no_grad():
         proposals, _ = select_proposals(
             [lg.detach() for lg in logits], [d.detach() for d in deltas],
-            anchors_np, S, cfg.rpn_pre_nms_topk_train,
+            level_anchors, S, cfg.rpn_pre_nms_topk_train,
             cfg.rpn_post_nms_topk_train, cfg.rpn_nms_thresh)
     # append the GT boxes (PROPOSAL_APPEND_GT)
     proposals = torch.cat([proposals, gt_boxes], dim=1)
@@ -465,6 +470,33 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return g
 
 
+def _trainable(state: dict, cfg: ModelConfig) -> tuple[list, list]:
+    """The non-frozen parameters and their velocities, in the tree's
+    order."""
+    ps, vs = zip(*[(p, v) for (path, p), (_, v) in zip(
+        leaves(state["params"]), leaves(state["velocity"]))
+        if not _is_frozen(path, cfg.freeze_at)])
+    return list(ps), list(vs)
+
+
+def _sgd_step(cfg: ModelConfig, image_size: int, params: dict, ps: list,
+              vs: list, batch: dict, draws: dict, lr, group=None) -> dict:
+    """The losses of ``batch``, their gradients (summed over ``group``'s
+    ranks) and the update of ``ps`` and ``vs`` in place; ``lr`` a number,
+    or a 0-d float32 tensor on their device. Returns the losses."""
+    losses = compute_losses(params, batch, draws, cfg, image_size, group)
+    grads = list(torch.autograd.grad(losses["total"], ps))
+    if group is not None:
+        grads = group.all_reduce(grads)
+    with torch.no_grad():
+        g = torch._foreach_add(grads,
+                               torch._foreach_mul(ps, cfg.weight_decay))
+        torch._foreach_mul_(vs, cfg.momentum)
+        torch._foreach_add_(vs, g)
+        torch._foreach_sub_(ps, torch._foreach_mul(vs, lr))
+    return losses
+
+
 def make_train_step(cfg: ModelConfig, image_size: int, group=None):
     """One SGD step: ``step(state, batch, draws=None) -> metrics`` updates
     the state in place (parameters, velocity, step) and returns the loss
@@ -481,11 +513,7 @@ def make_train_step(cfg: ModelConfig, image_size: int, group=None):
     world, rank = (group.world, group.rank) if group is not None else (1, 0)
 
     def step_fn(state: dict, batch: dict, draws: dict | None = None):
-        params = state["params"]
-        ps, vs = zip(*[(p, v) for (path, p), (_, v) in zip(
-            leaves(params), leaves(state["velocity"]))
-            if not _is_frozen(path, cfg.freeze_at)])
-        ps, vs = list(ps), list(vs)
+        ps, vs = _trainable(state, cfg)
         B, G = batch["gt_boxes"].shape[:2]
         if draws is None:
             draws = draw_uniforms(cfg, image_size, B * world, G,
@@ -493,18 +521,9 @@ def make_train_step(cfg: ModelConfig, image_size: int, group=None):
                                                  state["step"],
                                                  batch["image"].device))
         draws = {k: v[rank * B:(rank + 1) * B] for k, v in draws.items()}
-        losses = compute_losses(params, batch, draws, cfg, image_size,
-                                group)
-        grads = list(torch.autograd.grad(losses["total"], ps))
-        if group is not None:
-            grads = group.all_reduce(grads)
         lr = lr_schedule(state["step"], cfg)
-        with torch.no_grad():
-            g = torch._foreach_add(grads,
-                                   torch._foreach_mul(ps, cfg.weight_decay))
-            torch._foreach_mul_(vs, cfg.momentum)
-            torch._foreach_add_(vs, g)
-            torch._foreach_sub_(ps, torch._foreach_mul(vs, lr))
+        losses = _sgd_step(cfg, image_size, state["params"], ps, vs, batch,
+                           draws, lr, group)
         state["step"] += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         if group is not None:
@@ -521,3 +540,128 @@ def train_step(cfg: ModelConfig, image_size: int, group=None):
     """The step of (cfg, image size, group), made once a process: repeated
     trainings (resumed runs, tests) share it."""
     return make_train_step(cfg, image_size, group)
+
+
+def _stacked_draws(cfg: ModelConfig, image_size: int, state: dict, k: int,
+                   B: int, G: int, device) -> dict:
+    """The uniforms of the state's next k steps, (k, B, n) each: step s's
+    from :func:`step_generator` (seed, s), what a single step draws."""
+    per_step = [draw_uniforms(cfg, image_size, B, G, step_generator(
+        state["seed"], state["step"] + i, device)) for i in range(k)]
+    return {name: torch.stack([d[name] for d in per_step])
+            for name in per_step[0]}
+
+
+def _clone_state(state: dict) -> dict:
+    """Parameters and velocity copied, each parameter requiring a gradient
+    as its original does."""
+    return {"params": tree_map(lambda _, t: t.detach().clone()
+                               .requires_grad_(t.requires_grad),
+                               state["params"]),
+            "velocity": tree_map(lambda _, t: t.clone(), state["velocity"])}
+
+
+class _TrainGraph:
+    """k SGD steps of one state captured into one CUDA graph, their
+    batches, uniforms and learning rates read from static buffers
+    (``batches``, ``draws``: (k, ...) each; ``lr``: (k,) float32) that
+    :meth:`load` fills. The capture's warm-up reads the first inputs,
+    loaded before it, on a copy of the state, which stays as it is for
+    the replays."""
+
+    def __init__(self, cfg, image_size, k, state, batches, draws, lrs,
+                 device):
+        self.batches = {n: torch.empty_like(v, device=device)
+                        for n, v in batches.items()}
+        self.draws = {n: torch.empty_like(v, device=device)
+                      for n, v in draws.items()}
+        self.lr = torch.zeros(k, dtype=torch.float32, device=device)
+        self.state_key = storage_key((state["params"], state["velocity"]))
+        self.load(batches, draws, lrs)
+
+        def step(target, i):
+            ps, vs = _trainable(target, cfg)
+            return _sgd_step(cfg, image_size, target["params"], ps, vs,
+                             {n: v[i] for n, v in self.batches.items()},
+                             {n: v[i] for n, v in self.draws.items()},
+                             self.lr[i])
+
+        def body():
+            for i in range(k):
+                losses = step(state, i)
+            return {n: v.detach() for n, v in losses.items()}
+
+        self.graph = CapturedGraph(body, lambda: step(_clone_state(state), 0),
+                                   device)
+
+    def load(self, batches: dict, draws: dict, lrs: list):
+        for n, v in batches.items():
+            self.batches[n].copy_(v, non_blocking=True)
+        for n, v in draws.items():
+            self.draws[n].copy_(v)
+        self.lr.copy_(torch.tensor(lrs, dtype=torch.float32))
+
+
+def make_train_scan_step(cfg: ModelConfig, image_size: int, k: int,
+                         group=None, device="cuda"):
+    """k SGD steps in one host call, the reference's
+    ``make_train_scan_step``: ``fn(state, batches, draws=None)`` updates
+    the state in place as k calls of :func:`make_train_step`'s step would
+    and returns the metrics of the last step. ``batches``: the batch dict's
+    arrays stacked on a leading k axis, (k, B, ...); ``draws``: the k
+    steps' uniforms stacked the same way (default: each step's from
+    :func:`step_generator`, as a single step draws them). The state lives
+    on ``device``.
+
+    On a CUDA device the k steps are one CUDA graph (``_TrainGraph``):
+    forward, ``torch.autograd.grad``, the poolers (K2, or K1 on the fast
+    profile) with K5 in their backward, K3 and the ``_foreach`` update,
+    captured at the first call for (B, G) and the state's tensors and
+    replayed after that; the uniforms are drawn outside it into its static
+    buffers (a generator called inside a capture is not advanced by its
+    replays) and the learning rates are a device tensor of the k steps'.
+    Elsewhere the k steps run in a loop with the same tensor learning rate,
+    the plain version. One device only, as the reference's form has no
+    mesh: a ``group`` raises."""
+    if group is not None:
+        raise ValueError("make_train_scan_step runs on one device; a "
+                         "data-parallel group takes make_train_step")
+    device = resolve_device(device)
+    graphs: dict = {}
+
+    def fn(state: dict, batches: dict, draws: dict | None = None) -> dict:
+        batches = {n: torch.as_tensor(v) for n, v in batches.items()}
+        if batches["image"].shape[0] != k:
+            raise ValueError(f"{batches['image'].shape[0]} batches for a "
+                             f"scan of {k}")
+        B, G = batches["gt_boxes"].shape[1:3]
+        if draws is None:
+            draws = _stacked_draws(cfg, image_size, state, k, B, G, device)
+        lrs = [lr_schedule(state["step"] + i, cfg) for i in range(k)]
+        if device.type == "cuda":
+            graph = graphs.get((B, G))
+            if graph is None or graph.state_key != storage_key(
+                    (state["params"], state["velocity"])):
+                graphs.pop((B, G), None)
+                graph = _TrainGraph(cfg, image_size, k, state, batches,
+                                    draws, lrs, device)
+                graphs[(B, G)] = graph
+            else:
+                graph.load(batches, draws, lrs)
+            graph.graph.replay()
+            metrics = {n: v.clone() for n, v in graph.graph.outputs.items()}
+        else:
+            ps, vs = _trainable(state, cfg)
+            for i in range(k):
+                losses = _sgd_step(
+                    cfg, image_size, state["params"], ps, vs,
+                    {n: v[i].to(device) for n, v in batches.items()},
+                    {n: v[i].to(device) for n, v in draws.items()},
+                    torch.tensor(lrs[i], dtype=torch.float32))
+            metrics = {n: v.detach() for n, v in losses.items()}
+        state["step"] += k
+        metrics["lr"] = torch.tensor(lrs[-1], dtype=torch.float32)
+        return metrics
+
+    fn.graphs = graphs
+    return fn

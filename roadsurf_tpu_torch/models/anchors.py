@@ -9,6 +9,7 @@ same float32 values."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -50,6 +51,17 @@ def all_level_anchors(image_size: int, strides, sizes, aspect_ratios,
         fh = fw = (image_size + stride - 1) // stride
         out.append(level_anchors(fh, fw, stride, size, aspect_ratios, offset))
     return out
+
+
+@functools.lru_cache(maxsize=32)
+def anchors_on(image_size: int, strides, sizes, aspect_ratios,
+               offset: float, device: torch.device) -> tuple:
+    """:func:`all_level_anchors` as float32 tensors on ``device``, made at
+    the first call for these arguments and shared by every later one (a
+    CUDA graph's capture makes no host-to-device copy; see
+    ``utils.device.device_constant``). Never written to."""
+    return tuple(torch.from_numpy(a).to(device) for a in all_level_anchors(
+        image_size, strides, sizes, aspect_ratios, offset))
 
 
 def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,

@@ -15,14 +15,16 @@ port's ``quant.prepare_quantized``.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
-from ..utils.device import compute_dtype, resolve_device
+from ..utils.device import compute_dtype, device_constant, resolve_device
+from ..utils.graphs import CapturedGraph, storage_key, tensor_leaves
 from ..utils.weights import state_to
-from .anchors import all_level_anchors
+from .anchors import anchors_on
 from .config import ModelConfig
 from .fpn import fpn_forward
 from .quant import fpn_forward_int8, fpn_forward_int8_pyr, \
@@ -33,6 +35,14 @@ from .roi_heads import box_head_forward, inference_detections, \
 from .rpn import rpn_head_forward, select_proposals
 
 MASK_FORMATS = ("logits", "u8", "both", "bits")
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_weights(src: int, dst: int, device: torch.device
+                    ) -> torch.Tensor:
+    """:func:`_bilinear_weights` on ``device``, made once (see
+    ``utils.device.device_constant``)."""
+    return torch.from_numpy(_bilinear_weights(src, dst)).to(device)
 
 
 def _bilinear_weights(src: int, dst: int) -> np.ndarray:
@@ -60,15 +70,15 @@ def preprocess(images: torch.Tensor, cfg: ModelConfig,
     if input_size != images.shape[1]:
         B, H, Wd, C = x.shape
         dev = x.device
-        wy = torch.from_numpy(_bilinear_weights(H, input_size)).to(dev)
-        wx = torch.from_numpy(_bilinear_weights(Wd, input_size)).to(dev)
+        wy = _resize_weights(H, input_size, dev)
+        wx = _resize_weights(Wd, input_size, dev)
         a = x.permute(1, 0, 2, 3).reshape(H, B * Wd * C)
         y = (wy @ a).reshape(input_size, B, Wd, C)
         b = y.permute(2, 1, 0, 3).reshape(Wd, B * input_size * C)
         z = (wx @ b).reshape(input_size, B, input_size, C)
         x = z.permute(1, 2, 0, 3)
-    mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=x.device)
-    std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=x.device)
+    mean = device_constant(tuple(cfg.pixel_mean), x.device, torch.float32)
+    std = device_constant(tuple(cfg.pixel_std), x.device, torch.float32)
     return (x - mean) / std
 
 
@@ -91,6 +101,31 @@ def _quant_tree(state: dict, cfg: ModelConfig) -> dict:
     return {}
 
 
+def _backbone_fpn(state, q, x, dtype) -> list:
+    """ResNet-50 and FPN on NCHW (channels_last) input, each int8 where
+    ``q`` has its group: the P-levels, NCHW channels_last."""
+    if "backbone" in q:
+        feats = resnet_forward_int8(q["backbone"], x)
+    else:
+        feats = resnet_forward(state["backbone"], x)
+    if "fpn" in q:
+        return fpn_forward_int8(q["fpn"], feats, dtype)
+    return fpn_forward(state["fpn"], {k: v.to(dtype)
+                                      for k, v in feats.items()})
+
+
+def forward_features(state: dict, x: torch.Tensor, cfg: ModelConfig,
+                     dtype: torch.dtype, q: dict | None = None) -> list:
+    """The reference's ``forward_features``: ResNet-50 and FPN of
+    preprocessed images ``x`` (B, S, S, 3), int8 where the config's quant
+    tree (or ``q``) has the group, else in ``dtype``. Returns the P-levels
+    as NHWC (B, H_l, W_l, C) views, the reference's layout."""
+    q = _quant_tree(state, cfg) if q is None else q
+    x = x.to(dtype).permute(0, 3, 1, 2) \
+        .contiguous(memory_format=torch.channels_last)
+    return [f.permute(0, 2, 3, 1) for f in _backbone_fpn(state, q, x, dtype)]
+
+
 def _features(state, q, x, cfg, dtype):
     """Backbone, FPN and RPN head, each int8 where ``q`` has its group;
     -> (P-levels, objectness, deltas, the levels' scales or None)."""
@@ -102,15 +137,7 @@ def _features(state, q, x, cfg, dtype):
         fpn_feats = fpn_forward_int8_pyr(q["fpn"], pyr, res, dtype)
         logits, deltas = rpn_head_forward_int8_pyr(q["rpn"], pyr, fpn_feats)
         return fpn_feats, logits, deltas, pyr["out_sa"]
-    if "backbone" in q:
-        feats = resnet_forward_int8(q["backbone"], x)
-    else:
-        feats = resnet_forward(state["backbone"], x)
-    if "fpn" in q:
-        fpn_feats = fpn_forward_int8(q["fpn"], feats, dtype)
-    else:
-        fpn_feats = fpn_forward(state["fpn"], {k: v.to(dtype)
-                                               for k, v in feats.items()})
+    fpn_feats = _backbone_fpn(state, q, x, dtype)
     if "rpn" in q:
         logits, deltas = rpn_head_forward_int8(q["rpn"], fpn_feats)
     else:
@@ -139,8 +166,9 @@ def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
             .contiguous(memory_format=torch.channels_last)
     fpn_feats, logits, deltas, feat_scales = _features(state, q, x, cfg,
                                                        dtype)
-    anchors = all_level_anchors(S, cfg.fpn_strides, cfg.anchor_sizes,
-                                cfg.anchor_aspect_ratios, cfg.anchor_offset)
+    anchors = anchors_on(S, cfg.fpn_strides, cfg.anchor_sizes,
+                         cfg.anchor_aspect_ratios, cfg.anchor_offset,
+                         images.device)
     gate_geom = [(cfg.num_anchors, cfg.anchor_aspect_ratios, st, sz)
                  for st, sz in zip(cfg.fpn_strides, cfg.anchor_sizes)]
     proposals, prop_scores = select_proposals(
@@ -177,8 +205,8 @@ def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
             # bitorder="little") on the host)
             B2, D2 = masks.shape[:2]
             bits = (masks >= 0.0).reshape(B2, D2, -1, 8).to(torch.int32)
-            weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128],
-                                   dtype=torch.int32, device=masks.device)
+            weights = device_constant((1, 2, 4, 8, 16, 32, 64, 128),
+                                      masks.device, torch.int32)
             dets["mask_bits"] = (bits * weights).sum(-1).to(torch.uint8)
 
     # report boxes in native tile coordinates
@@ -199,6 +227,68 @@ def forward_inference(state: dict, images, cfg: ModelConfig,
     with torch.inference_mode():
         images = torch.as_tensor(images).to(device)
         return forward_prepared(state, images, cfg, with_masks, mask_format)
+
+
+def capture_scan(per_slice, shape: tuple, device: torch.device
+                 ) -> CapturedGraph:
+    """A CUDA graph of ``per_slice`` (an image batch -> a dict of tensors)
+    on each of the k slices of one static (k, B, H, W, 3) uint8 input,
+    ``graph.static_in``; ``graph.outputs`` holds the results stacked on a
+    leading k axis. The warm-up runs one slice (``utils/graphs.py``)."""
+    static_in = torch.zeros(shape, dtype=torch.uint8, device=device)
+
+    def body():
+        outs = [per_slice(static_in[i]) for i in range(shape[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    graph = CapturedGraph(body, lambda: per_slice(static_in[0]), device)
+    graph.static_in = static_in
+    return graph
+
+
+@functools.lru_cache(maxsize=32)
+def make_inference_scan_fn(cfg: ModelConfig, with_masks: bool = True,
+                           mask_format: str = "logits"):
+    """The reference's ``make_inference_scan_fn``: returns ``fn(state,
+    images)``, ``images`` (k, B, H, W, 3) uint8 (numpy or a tensor) and
+    ``state`` prepared on its device (``state_to``), whose result is the
+    detection dict of :func:`forward_prepared` stacked on a leading k axis.
+
+    On a CUDA device the k forwards are one CUDA graph
+    (:func:`capture_scan`), captured at the first call for (k, B, H, W,
+    device) and the state's tensors, and kept in ``fn.graphs``: a call is
+    one copy into the graph's static input and one replay, and the result
+    is the graph's static output, valid until the next call at that shape.
+    Elsewhere the k forwards run in a loop, the plain version."""
+    check_config(cfg, mask_format)
+    graphs: dict = {}
+
+    def forward(state, x):
+        return forward_prepared(state, x, cfg, with_masks, mask_format)
+
+    def fn(state: dict, images) -> dict:
+        images = torch.as_tensor(images)
+        device = tensor_leaves(state)[0].device
+        with torch.inference_mode():
+            if device.type != "cuda":
+                outs = [forward(state, images[i].to(device))
+                        for i in range(images.shape[0])]
+                return {k: torch.stack([o[k] for o in outs])
+                        for k in outs[0]}
+            key = (tuple(images.shape), device)
+            graph = graphs.get(key)
+            if graph is None or graph.state_key != storage_key(state):
+                graphs.pop(key, None)
+                graph = capture_scan(lambda x: forward(state, x),
+                                     tuple(images.shape), device)
+                graph.state_key = storage_key(state)
+                graphs[key] = graph
+            graph.static_in.copy_(images, non_blocking=True)
+            graph.replay()
+            return graph.outputs
+
+    fn.graphs = graphs
+    return fn
 
 
 # ---------------------------------------------------------------------------

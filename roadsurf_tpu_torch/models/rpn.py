@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.nms import NEG_INF, nms_fixed, nms_sweep, top_k
+from ..utils.device import device_constant
 from .anchors import apply_deltas, clip_boxes
 from .resnet import conv
 
@@ -69,8 +70,8 @@ def _local_max_gate(lg: torch.Tensor, num_anchors: int, aspect_ratios,
     down = torch.cat([x[:, 1:], pad_r], dim=1)
     left = torch.cat([pad_c, x[:, :, :-1]], dim=2)
     right = torch.cat([x[:, :, 1:], pad_c], dim=2)
-    h_ok = torch.as_tensor(horiz, device=lg.device)        # (A,)
-    v_ok = torch.as_tensor(vert, device=lg.device)
+    h_ok = device_constant(tuple(horiz), lg.device, torch.bool)    # (A,)
+    v_ok = device_constant(tuple(vert), lg.device, torch.bool)
     drop = (h_ok & ((left >= x) | (right > x))) \
         | (v_ok & ((up >= x) | (down > x)))
     return torch.where(drop, torch.full_like(x, NEG_INF), x).reshape(B, n)
@@ -83,7 +84,8 @@ def select_proposals(logits: list, deltas: list, anchors: list,
                      gate_geom: list | None = None):
     """Decode + per-level top-k + per-level NMS + global top-k.
 
-    anchors: per-level (N_l, 4) numpy arrays. Returns (boxes (B, K, 4),
+    anchors: per-level (N_l, 4) numpy arrays, or float32 tensors on the
+    logits' device (``anchors.anchors_on``). Returns (boxes (B, K, 4),
     scores (B, K)) with K = post_nms_topk; padding scores are NEG_INF.
 
     The reference takes an approximate top-k (recall 0.95) on the large
@@ -102,7 +104,8 @@ def select_proposals(logits: list, deltas: list, anchors: list,
         n = lg.shape[1]
         k = min(pre_nms_topk, n)
         sc, idx = top_k(lg.float(), k)                          # (B, k)
-        an_t = torch.from_numpy(np.asarray(an, np.float32)).to(dev)
+        an_t = an if isinstance(an, torch.Tensor) \
+            else torch.from_numpy(np.asarray(an, np.float32)).to(dev)
         sel_anchors = an_t[idx]                                 # (B, k, 4)
         sel_deltas = torch.gather(dl.float(), 1,
                                   idx[..., None].expand(B, k, 4))

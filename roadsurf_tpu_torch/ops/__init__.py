@@ -1,5 +1,5 @@
 from .int8_gemm import int8_gemm
-from .nms import batched_nms_fixed, nms_fixed, nms_sweep
+from .nms import batched_nms_fixed, nms_fixed, nms_scan, nms_sweep
 from .nms_kernel import nms_keep_mask
 from .roi_align import roi_align_multilevel
 from .roi_align_backward_kernel import roi_align_backward
@@ -7,8 +7,8 @@ from .roi_align_blocked_kernel import roi_align_fused_blocked
 from .roi_align_kernel import roi_align_fused
 
 __all__ = ["int8_gemm", "roi_align_multilevel", "nms_fixed", "nms_sweep",
-           "batched_nms_fixed", "launch_counts", "reset_launch_counts",
-           "COUNTERS"]
+           "batched_nms_fixed", "nms_scan", "launch_counts",
+           "reset_launch_counts", "add_launch_counts", "COUNTERS"]
 
 # count name -> (kernel wrapper, attribute): each wrapper adds one where it
 # launches its kernel, the poolers per mode of their levels (K5 per type of
@@ -35,3 +35,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` ({count name: n}) to the counts: a CUDA graph's replay
+    adds the launches its capture recorded (``utils/graphs.py``)."""
+    for name, n in delta.items():
+        fn, attr = COUNTERS[name]
+        setattr(fn, attr, getattr(fn, attr) + n)

@@ -11,7 +11,10 @@ leading batch dims (the reference vmaps its per-image form).
   ``nms_keep_mask``: one kernel launch on CUDA tensors, its plain Jacobi
   form on CPU tensors), the mask scattered back to input order;
 * :func:`nms_sweep` — single sweep: a box is kept iff no higher-priority
-  valid box overlaps it. The fast profile uses it.
+  valid box overlaps it. The fast profile uses it;
+* :func:`nms_scan` — the textbook sequential form of exact greedy NMS,
+  one problem, one rank a step: the semantics oracle of :func:`nms_fixed`
+  and K3, as in the reference.
 
 All keep the reference's divisionless overlap test ``inter > t·union`` and
 its score-then-index priority, and :func:`top_k` breaks ties toward the
@@ -64,6 +67,41 @@ def keep_sorted(boxes: torch.Tensor, scores: torch.Tensor,
                          torch.gather(scores, -1, order).contiguous(),
                          iou_thresh)
     return torch.zeros_like(keep).scatter_(-1, order, keep)
+
+
+def _iou_one_vs_all(b, boxes, areas, area_i):
+    lt = torch.maximum(boxes[:, :2], b[:2])
+    rb = torch.minimum(boxes[:, 2:], b[2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[:, 0] * wh[:, 1]
+    union = areas + area_i - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
+def nms_scan(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
+             max_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact greedy NMS of one problem, boxes (N, 4) and scores (N,), as an
+    N-step rank scan: the box of each rank, if still kept, removes every
+    later box whose IoU with it exceeds the threshold. The semantics
+    oracle of :func:`nms_fixed` (a copy of the reference's ``nms_scan``,
+    with its IoU quotient: the two tests differ only where an IoU lies
+    within a rounding of the threshold). Returns (keep_scores, keep_idx)
+    as :func:`nms_fixed` does."""
+    n = boxes.shape[0]
+    order = torch.argsort(-scores, stable=True)
+    sboxes, sscores = boxes[order], scores[order]
+    areas = (sboxes[:, 2] - sboxes[:, 0]).clamp(min=0) \
+        * (sboxes[:, 3] - sboxes[:, 1]).clamp(min=0)
+    later = torch.arange(n, device=boxes.device)
+    keep = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    for i in range(n):
+        row = (_iou_one_vs_all(sboxes[i], sboxes, areas, areas[i])
+               > iou_thresh) & keep[i]
+        keep = keep & ~(row & (later > i))
+    kept = torch.where(keep & (sscores > NEG_INF / 2), sscores,
+                       torch.full_like(sscores, NEG_INF))
+    top_scores, top_i = top_k(kept, max_out)
+    return top_scores, order[top_i]
 
 
 def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,

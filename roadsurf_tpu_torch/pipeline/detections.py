@@ -157,12 +157,14 @@ def detect_tiles(state: dict, cfg: ModelConfig, image_paths: list[str],
                  tile_size: int = 256, progress_every: int = 50,
                  mask_format: str = "bits", device="cuda",
                  n_devices: int | None = None,
-                 stats: dict | None = None) -> list[dict]:
+                 stats: dict | None = None, scan_k: int = 1) -> list[dict]:
     """Run inference over tile images; returns the per-detection records
     (geometry in EPSG:3857 of the tile bounds, score, det_class) in tile
     order. tile_bounds[i] = (west, south, east, north) in 3857 for image i.
     The engine shards each batch over ``n_devices`` devices
-    (:func:`engine_devices`).
+    (:func:`engine_devices`) and runs ``scan_k`` batches a dispatch (a
+    CUDA graph of ``scan_k`` forwards on the card; the reference's
+    ``scan_k``).
     ``stats``, if given, gains the stage breakdown: ``wall_s`` (this
     call), ``decode_s``, ``h2d_s``, ``d2h_s``, ``vectorize_s``
     (thread-seconds), and the counts ``tiles``, ``detections`` (valid, at
@@ -187,7 +189,8 @@ def detect_tiles(state: dict, cfg: ModelConfig, image_paths: list[str],
 
     engine = TileInferenceEngine(state, cfg, batch_size=batch_size,
                                  with_masks=True, mask_format=mask_format,
-                                 devices=engine_devices(device, n_devices))
+                                 devices=engine_devices(device, n_devices),
+                                 scan_k=scan_k)
     n = len(image_paths)
     stage_s = {"decode": 0.0, "vectorize": 0.0}
     lock = threading.Lock()

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -20,3 +22,15 @@ def resolve_device(device) -> torch.device:
 def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else torch.float32
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(value, device: torch.device, dtype: torch.dtype
+                    ) -> torch.Tensor:
+    """``torch.tensor(value, dtype=dtype)`` on ``device``, made at the first
+    call for (value, device, dtype) and shared by every later one; ``value``
+    a number or a tuple. The forward and the training step take their
+    small constants from here: a host-to-device copy synchronises the host,
+    which a CUDA graph's capture does not allow, so the warm-up before a
+    capture (``utils/graphs.py``) makes them. Never written to."""
+    return torch.tensor(value, dtype=dtype).to(device)

@@ -62,4 +62,10 @@ def get_logger(name: str = "roadsurf_tpu_torch.stages") -> logging.Logger:
     return logger
 
 
+def format_logger(logger=None) -> logging.Logger:
+    """The stages' logger, whatever is passed: the reference's alias of
+    its ``fct_misc.format_logger``."""
+    return get_logger()
+
+
 logger = get_logger()

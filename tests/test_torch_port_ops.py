@@ -124,6 +124,35 @@ def test_nms_keep_indices_exactly_equal(fn):
             np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
 
 
+@pytest.mark.parametrize("case", range(6))
+def test_nms_scan_is_the_oracle_of_nms_fixed_and_k3(case):
+    """``nms_scan``, the textbook rank scan, equals the reference's; the
+    port's ``nms_fixed`` and K3's plain version (on the stably sorted
+    boxes, its keep mask scattered back) keep exactly what it keeps, in its
+    order, ties and NEG_INF padding in the input included. The slots past
+    the kept boxes hold NEG_INF in all three; their indices differ by
+    design (the scan's in rank order, ``nms_fixed``'s in input order)."""
+    from roadsurf_tpu_torch.ops.nms_kernel import nms_keep_mask_ref
+
+    b, s, t = _nms_cases()[case]
+    for max_out in (len(b), 10):
+        rs, ri = jnms.nms_scan(jnp.asarray(b), jnp.asarray(s), t, max_out)
+        gs, gi = tnms.nms_scan(_t(b), _t(s), t, max_out)
+        np.testing.assert_array_equal(gs.numpy(), np.asarray(rs))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+        kept = gs > NEG_INF / 2
+        assert 0 < int(kept.sum()) <= max_out
+        fs, fi = tnms.nms_fixed(_t(b), _t(s), t, max_out)
+        np.testing.assert_array_equal(fs.numpy(), gs.numpy())
+        np.testing.assert_array_equal(fi[kept].numpy(), gi[kept].numpy())
+        order = torch.sort(_t(s), descending=True, stable=True).indices
+        keep = nms_keep_mask_ref(_t(b)[order], _t(s)[order], t)
+        ks, ki = tnms._kept_top(
+            torch.zeros_like(keep).scatter_(0, order, keep), _t(s), max_out)
+        np.testing.assert_array_equal(ks.numpy(), gs.numpy())
+        np.testing.assert_array_equal(ki[kept].numpy(), gi[kept].numpy())
+
+
 @pytest.mark.parametrize("fast", [True, False])
 def test_batched_nms_exactly_equal_with_batch_dim(fast):
     """The port's NMS takes a leading batch dim where the reference

@@ -131,6 +131,124 @@ def test_every_module_of_the_reference_has_its_counterpart():
     assert missing == set(), missing
 
 
+# the reference's public top-level names that are JAX idiom, each with
+# the port's counterpart ("module::name" in the port, checked to exist)
+JAX_ONLY = {
+    "models/mask_rcnn.py": {
+        "jitted_inference_fn": "models/mask_rcnn.py::forward_prepared",
+        "make_inference_fn": "models/mask_rcnn.py::forward_prepared"},
+    "engine/train.py": {"jitted_train_step": "engine/train.py::train_step"},
+    "parallel/mesh.py": {
+        # devices=[...] of the engine, one process a rank in training
+        "batch_sharding": "parallel/mesh.py::shard_batch",
+        "data_parallel_mesh": "parallel/mesh.py::DataParallelGroup"},
+    "models/resnet.py": {"init_resnet": "models/mask_rcnn.py::init_params",
+                         "stop_gradient_frozen":
+                             "engine/train.py::_is_frozen"},
+    "models/fpn.py": {"init_fpn": "models/mask_rcnn.py::init_params"},
+    "models/rpn.py": {"init_rpn": "models/mask_rcnn.py::init_params"},
+    "models/roi_heads.py": {
+        "init_box_head": "models/mask_rcnn.py::init_params",
+        "init_mask_head": "models/mask_rcnn.py::init_params"},
+    # the TPU's int8 conv compute switch (bf16 or int8 on the MXU); the
+    # port's int8 convs take one mode, f32 sums of int8 operands
+    "models/quant.py": {
+        "QCONV_COMPUTE": "models/quant.py::resnet_forward_int8"},
+    # the Pallas modules: their kernels' wrappers are ops/*_kernel.py
+    # (PALLAS below); the TPU's batched entry points and VMEM block pickers
+    "ops/nms_pallas.py": {"nms_fixed_batch": "ops/nms.py::nms_fixed",
+                          "batched_nms_batch":
+                              "ops/nms.py::batched_nms_fixed"},
+    "ops/roi_align_pallas.py": {
+        "pick_rb": "ops/roi_align_kernel.py::check_staged_layout",
+        "pick_gb": "ops/roi_align_kernel.py::check_staged_layout"},
+}
+PALLAS = ("ops/nms_pallas.py", "ops/roi_align_pallas.py")
+
+
+def _top_level_names(path: str, with_imports: bool) -> set:
+    """The public names a module defines at its top level (functions,
+    classes, assignments), and with ``with_imports`` those it imports."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) \
+                and isinstance(node.target, ast.Name):
+            out.add(node.target.id)
+        elif with_imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return {n for n in out if not n.startswith("_")} if not with_imports \
+        else out
+
+
+def test_every_public_name_of_the_reference_has_its_counterpart():
+    """Each public top-level name of a reference module is defined or
+    imported by its counterpart in the port (``RENAMED``; for the Pallas
+    modules, any of ``ops/*_kernel.py``), or is JAX idiom listed in
+    ``JAX_ONLY`` with a counterpart that exists."""
+    ref_root = os.path.join(ROOT, "roadsurf_tpu")
+    port_root = os.path.join(ROOT, "roadsurf_tpu_torch")
+
+    def port_names(rel):
+        if rel in PALLAS:
+            kernels = os.path.join(port_root, "ops")
+            return set().union(*(
+                _top_level_names(os.path.join(kernels, f), True)
+                for f in os.listdir(kernels) if f.endswith("_kernel.py")))
+        return _top_level_names(os.path.join(port_root,
+                                             RENAMED.get(rel, rel)), True)
+
+    missing, listed = [], 0
+    for d, _, files in os.walk(ref_root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, f), ref_root)
+            jax_only = JAX_ONLY.get(rel, {})
+            have = port_names(rel)
+            for name in sorted(_top_level_names(os.path.join(d, f), False)):
+                if name in have:
+                    continue
+                if name in jax_only:
+                    listed += 1
+                    continue
+                missing.append(f"{rel}::{name}")
+    assert missing == [], missing
+    assert listed == sum(len(v) for v in JAX_ONLY.values())
+    for names in JAX_ONLY.values():
+        for counterpart in names.values():
+            module, name = counterpart.split("::")
+            assert name in _top_level_names(os.path.join(port_root, module),
+                                            True), counterpart
+
+
+def test_the_scan_dispatch_and_the_small_names_are_the_references():
+    """The names the counterpart test found missing before the scan
+    dispatch was ported: ``crs.Transformer`` and ``utils.logging.
+    format_logger`` against the reference's."""
+    from roadsurf_tpu.crs import Transformer as JTransformer
+    from roadsurf_tpu.utils.logging import format_logger as j_format
+    from roadsurf_tpu_torch.crs import Transformer
+    from roadsurf_tpu_torch.utils import logging as tlog
+
+    x = np.array([2600000.0, 2612345.5, 2700000.25])
+    y = np.array([1200000.0, 1187654.5, 1100000.75])
+    for src, dst in ((2056, 4326), (2056, 3857), ("EPSG:3857", 4326)):
+        got = Transformer.from_crs(src, dst, always_xy=True).transform(x, y)
+        ref = JTransformer.from_crs(src, dst, always_xy=True).transform(x, y)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r)
+    assert tlog.format_logger() is tlog.logger
+    assert tlog.format_logger(object()) is tlog.get_logger()
+    assert j_format() is not None
+
+
 def test_forbidden_matches_the_package_not_the_port():
     assert _forbidden("roadsurf_tpu") and _forbidden("roadsurf_tpu.ops.nms")
     assert _forbidden("jax") and _forbidden("jax.numpy")
@@ -175,6 +293,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(state_and_cfg,
         forward_inference(state, imgs, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TileInferenceEngine(state, cfg, batch_size=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TileInferenceEngine(state, cfg, batch_size=1, scan_k=3)
+    from roadsurf_tpu_torch.engine.train import make_train_scan_step
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_scan_step(cfg, 64, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prepare_quantized(state, imgs, replace(cfg, int8_scope="full"))
     out = forward_inference(state, imgs, cfg, device="cpu")
