@@ -183,15 +183,28 @@ exits non-zero:
    service, 600 training steps at B=8 on 256 px tiles, the validation
    AP, make_detections with the checkpoint and final metrics under the
    fast and the exact profile; gate: each profile's balanced F1 at
-   least 0.15 over the baseline's). K1, K3 and K5 must have run.
-19. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
+   least 0.15 over the baseline's). K1, K3 and K5 must have run. Its
+   workdir stays for the next phase.
+19. ``ablation_path``: in ``quality_path``'s workdir (the scene reused),
+   ``tools.ablate_seeded`` trains one seed (1000, 600 steps) and scores it
+   under fast-R32+int8pyr, parity800 and parity800+int8pyr (gates: the
+   int8 fast profile's F1 at least 0.15 over the baseline's; the parity
+   rows' F1 in [0, 1] with a detection file for every dataset);
+   ``tools.ablate_mask_bits`` scores it with the u8 and the bits mask
+   downlink (gate: |delta F1| <= 0.02); ``tools.measure_detections`` runs
+   make_detections over 512 copies of the training tiles at B=256 with
+   that checkpoint (its inputs scaled as it was trained), at scan_k 1
+   (profiled), 4 and on the int8 stack
+   (gates: records > 0; scan_k 4's records equal to scan_k 1's). K1 and
+   K2 in bf16 and int8, K3 and K5 must have run.
+20. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
    image (10000² × 4 uint16, EPSG:2056, a nodata border): the host's
    inverse map, the gather (equal to numpy's of the same indices),
    ``band_stats`` (min/max equal, mean/std rtol 1e-5 of float64 numpy),
    ``scale_to_byte`` (equal to its CPU version), each timed; then
    ``Tif2Cog.run`` over a ``LocalStore`` on three 2000² images: steps
    1-3, a rerun that skips, COGs in EPSG:3857 with 8 overviews.
-20. ``stats_path``: the statistical branch, config/config_stats.yaml's
+21. ``stats_path``: the statistical branch, config/config_stats.yaml's
    chain (``stats_chain``) on ``write_scene``'s grid: ``pipeline.
    stats_prep`` (the overlap-free road polygons, the restricted AOI),
    ``pipeline.label_prep`` (the tiles over them), ``pipeline.tilesets``
@@ -2950,7 +2963,7 @@ SMOKE_LOSS_RATIO, SMOKE_MAX_LOSS = 0.2, 1.0
 SMOKE_MIN_FOUND, F1_OVER_BASELINE = 12, 0.15
 
 
-def phase_quality_path() -> dict:
+def phase_quality_path(wd: str) -> dict:
     """quality_path: the port's first runs with weights it trained. (1)
     ``tools.learning_smoke.run``: 500 SGD steps from scratch on synthetic
     rectangles at 64 px, B=16, then the scoring of 8 test tiles; gates: the
@@ -2958,17 +2971,15 @@ def phase_quality_path() -> dict:
     1.0, at least 12 of the 16 instances found; the same smoke with the
     weights held at their init (51 steps, base lr 0) must end above 0.2x
     its first total, so that the gate separates learning from none. (2)
-    ``tools.quality.run`` in a temporary
+    ``tools.quality.run`` in ``wd``, a
     directory under ``_build/``: label preparation, tilesets from the
     synthetic tile service (hard mode), 600 training steps at B=8 on 256
     px tiles, the validation tileset's COCO AP, make_detections with the
     checkpoint and the final metrics under the fast and the exact profile;
     gate: each profile's "all datasets" balanced F1 at least 0.15 over the
     baseline's. Both count their launches (training: K1 forward, K5
-    backward; the exact profile: K3); K1, K3 and K5 must each have run."""
-    import tempfile
-
-    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+    backward; the exact profile: K3); K1, K3 and K5 must each have run.
+    The chain runs in ``wd``, which ``ablation_path`` then reuses."""
     from roadsurf_tpu_torch.tools import learning_smoke, quality
 
     _reset_counts()
@@ -2999,8 +3010,7 @@ def phase_quality_path() -> dict:
     res["smoke"]["ratio"] = last50 / first
 
     _reset_counts()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as wd:
-        chain = quality.run(wd, iters=QUALITY_ITERS, batch=8, device="cuda")
+    chain = quality.run(wd, iters=QUALITY_ITERS, batch=8, device="cuda")
     chain_counts = _read_counts()
     curve = chain.pop("train_curve")
     res["chain"] = {**chain, "launches": chain_counts,
@@ -3017,6 +3027,106 @@ def phase_quality_path() -> dict:
     for k in ("roi_align", "nms", "roi_align_backward"):
         _require(res["launches"][k] > 0,
                  f"quality_path: {k} never launched: {res['launches']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the ablations: the seeded quality variants and make_detections measured,
+# on weights trained on the card
+
+# the variants of tools/ablate_seeded.py the phase scores: the fast int8
+# stack and the 800 px parity geometry in bf16 and int8 (K1 and K2 in both
+# modes, K3)
+ABLATION_VARIANTS = ("fast-R32+int8pyr", "parity800", "parity800+int8pyr")
+MASK_DELTA_MAX = 0.02           # |F1(bits) - F1(u8)|, paired: the same weights
+MEASURE_TILES, MEASURE_BATCH, MEASURE_SCAN_K = 512, 256, 4
+ABLATION_KERNELS = ("roi_align", "roi_align_int8", "roi_align_blocked",
+                    "roi_align_blocked_int8", "nms", "roi_align_backward")
+
+
+def _record_keys(records: list) -> list:
+    from roadsurf_tpu_torch.io import wkb
+
+    return [(wkb.dumps(r["geometry"]), r["score"], r["det_class"])
+            for r in records]
+
+
+def phase_ablation_path(wd: str) -> dict:
+    """ablation_path: the seeded ablations and make_detections measured,
+    in ``quality_path``'s workdir ``wd`` (its scene is reused). (1)
+    ``tools.ablate_seeded.run``: one seed (1000) trained from scratch, 600
+    steps at B=8 on 256 px tiles (K1 forward, K5 backward), scored under
+    ``ABLATION_VARIANTS`` (make_detections and final_metrics); gates:
+    fast-R32+int8pyr's balanced F1 at least ``F1_OVER_BASELINE`` over the
+    baseline's, as ``quality_path`` holds the bf16 profiles; each parity
+    row's F1 in [0, 1] and a detection file for every dataset. (2)
+    ``tools.ablate_mask_bits.run`` on that seed: the u8 and the bits
+    downlink, paired; gate: |delta| <= ``MASK_DELTA_MAX``. (3)
+    ``tools.measure_detections.run`` over 512 copies of the training tiles
+    with the seed's checkpoint at B=256, its inputs scaled as it was
+    trained (``from_scratch``; at the script's unit std the checkpoint
+    fires ~12 detections over 512 tiles): scan_k 1 (profiled: the
+    device's busy share), scan_k 4 (CUDA graphs) and the int8 stack;
+    gates: records > 0, and the records at scan_k 4 equal to scan_k 1's.
+    K1 and K2 in bf16 and int8, K3 and K5 must each have launched."""
+    from roadsurf_tpu_torch.tools import (ablate_mask_bits, ablate_seeded,
+                                          measure_detections)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    seeded = ablate_seeded.run(wd, seeds=1, iters=QUALITY_ITERS,
+                               variants=list(ABLATION_VARIANTS),
+                               device="cuda")
+    seeded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mask = ablate_mask_bits.run(wd, seeds=1, device="cuda")
+    mask_s = time.perf_counter() - t0
+    od = os.path.join(wd, "outputs", "obj_detector")
+    images, ckpt = os.path.join(od, "trn-images"), os.path.join(
+        od, "logs_seed0")
+    measured, recs = {}, {}
+    for label, kw in (("scan1", {"profile": True}),
+                      (f"scan{MEASURE_SCAN_K}", {"scan_k": MEASURE_SCAN_K}),
+                      ("int8", {"int8": True})):
+        recs[label] = []
+        measured[label] = measure_detections.run(
+            images, ckpt, n_tiles=MEASURE_TILES, batch=MEASURE_BATCH,
+            device="cuda", records=recs[label], from_scratch=True, **kw)
+    counts = _read_counts()
+    datasets = sorted(
+        f[len("COCO_"):-len(".json")] for f in os.listdir(od)
+        if f.startswith("COCO_") and f.endswith(".json"))
+    res = {"phase": "ablation_path", "rows": seeded["rows"],
+           "summary": seeded["summary"], "seeded_s": seeded_s,
+           "mask_bits": mask, "mask_bits_s": mask_s,
+           "measure_detections": measured, "datasets": datasets,
+           "launches": counts}
+    _emit(res)
+    rows = {r["variant"]: r for r in seeded["rows"]}
+    fast = rows["fast-R32+int8pyr"]
+    _require(fast["f1b"] >= fast["baseline_f1"] + F1_OVER_BASELINE,
+             f"ablation_path: fast-R32+int8pyr's balanced F1 {fast['f1b']} "
+             f"is not {F1_OVER_BASELINE} over the baseline's "
+             f"{fast['baseline_f1']}")
+    for name in ("parity800", "parity800+int8pyr"):
+        r = rows[name]
+        want = {f"{ds}_detections_at_0dot05_threshold.gpkg"
+                for ds in datasets}
+        _require(0.0 <= r["f1b"] <= 1.0 and want <= set(r["files"]),
+                 f"ablation_path: {name}: F1 {r['f1b']}, files "
+                 f"{r['files']}, datasets {datasets}")
+    _require(mask["max_abs_delta"] <= MASK_DELTA_MAX,
+             f"ablation_path: the bits downlink moved the F1 by "
+             f"{mask['max_abs_delta']} > {MASK_DELTA_MAX}: {mask}")
+    _require(all(m["records"] > 0 for m in measured.values()),
+             f"ablation_path: a measurement found no records: {measured}")
+    _require(_record_keys(recs[f"scan{MEASURE_SCAN_K}"])
+             == _record_keys(recs["scan1"]),
+             f"ablation_path: the records at scan_k {MEASURE_SCAN_K} differ "
+             f"from scan_k 1's")
+    for k in ABLATION_KERNELS:
+        _require(counts[k] > 0,
+                 f"ablation_path: {k} never launched: {counts}")
     return res
 
 
@@ -3950,7 +4060,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs["f32_forward"] = phase_f32_forward()
     torch.cuda.empty_cache()
-    runs["quality_path"] = phase_quality_path()
+    import shutil
+    import tempfile
+
+    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    wd = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        runs["quality_path"] = phase_quality_path(wd)
+        torch.cuda.empty_cache()
+        runs["ablation_path"] = phase_ablation_path(wd)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_cog_path()
     phase_stats_path()

@@ -57,6 +57,8 @@ CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "config", "config_obj_detec.yaml")
 OD = "outputs/obj_detector"
 DET_BATCH = 16                 # make_detections' batch, as the script's
+GLOBAL_METRICS = "outputs/final/tables/global metrics.csv"
+STD = (57.375, 57.12, 58.395)  # the input scaling of a start from scratch
 X0, Y0 = 2600000.0, 1200000.0  # EPSG:2056, mid-Switzerland
 
 
@@ -250,7 +252,7 @@ def quality_config(iters: int) -> ModelConfig:
     same config: the fast profile)."""
     return replace(
         fast_profile(),
-        pixel_std=(57.375, 57.12, 58.395),   # from-scratch normalisation
+        pixel_std=STD,
         freeze_at=0, base_lr=0.005, warmup_iters=100,
         roi_batch_per_image=128, rpn_batch_per_image=64,
         checkpoint_period=max(iters // 2, 1), eval_period=10 ** 9)
@@ -279,7 +281,9 @@ def exact_config(cfg: ModelConfig, budget=EXACT_BUDGET) -> ModelConfig:
                    rpn_post_nms_topk_test=post, detections_per_image=dets)
 
 
-def _global_metrics(path: str) -> dict:
+def global_metrics(path: str = GLOBAL_METRICS) -> dict:
+    """final_metrics' "all datasets" balanced F1, precision and recall, and
+    the baseline's balanced F1."""
     gm = pd.read_csv(path)
     line = gm[gm["dataset"] == "all datasets"].iloc[0]
     return {"balanced_f1_all": float(line["f1b"]),
@@ -359,7 +363,7 @@ def run(workdir: str, iters: int = 600, batch: int = 8, device="cuda",
                 det_cfg, model_cfg=mcfg, batch_size=DET_BATCH, device=dev))
             stage(f"final_metrics_{tag}",
                   lambda: evaluate.run(cfg["final_metrics.py"]))
-            return _global_metrics("outputs/final/tables/global metrics.csv")
+            return global_metrics()
 
         fast = profile("fast", model_cfg)
         exact = profile("exact", exact_config(model_cfg,

@@ -228,6 +228,66 @@ def test_every_public_name_of_the_reference_has_its_counterpart():
                                             True), counterpart
 
 
+# each script of the reference (scripts/*.py) and the port's entry point
+# that does its work (python -m roadsurf_tpu_torch.<module>)
+SCRIPTS = {
+    "RS_images_to_S3.py": "pipeline/upload.py",
+    "ablate_fast_profile.py": "tools/ablate_fast_profile.py",
+    "ablate_mask_bits.py": "tools/ablate_mask_bits.py",
+    "ablate_seeded.py": "tools/ablate_seeded.py",
+    "add_tile_mask.py": "pipeline/sandbox.py",
+    "assess_detections.py": "pipeline/assess.py",
+    "calculate_statistics.py": "pipeline/assess.py",
+    "correct_gt.py": "pipeline/sandbox.py",
+    "dem_zonal_stats.py": "tiles/rasters.py",
+    "determine_class.py": "pipeline/classify.py",
+    "e2e_synthetic_quality.py": "tools/quality.py",
+    "final_metrics.py": "pipeline/evaluate.py",
+    "generate_tilesets.py": "pipeline/tilesets.py",
+    "limit_used_tiles.py": "pipeline/sandbox.py",
+    "make_detections.py": "pipeline/detections.py",
+    "measure_detections.py": "tools/measure_detections.py",
+    "prepare_data.py": "pipeline/stats_prep.py",
+    "prepare_data_obj_detec.py": "pipeline/label_prep.py",
+    "smoke_learning.py": "tools/learning_smoke.py",
+    "statistical_analysis.py": "pipeline/stats_analysis.py",
+    "tif2cog.py": "pipeline/cog_pipeline.py",
+    "train_model.py": "pipeline/training.py",
+}
+# the reference's microbenchmarks, profiles and TPU checks: measurement
+# tools that wait for the port's benchmark (BENCHMARK.json), not stages a
+# user runs
+WAITING_FOR_THE_BENCHMARK = (
+    "bench_conv_dtypes.py", "bench_int8_gemm.py", "bench_pooler.py",
+    "bench_pooler_variants.py", "bench_proposals.py", "bench_training.py",
+    "check_blocked_pooler_tpu.py", "check_int8_pyramid_pooler_tpu.py",
+    "profile_heads.py", "profile_proposals.py", "profile_stages.py",
+    "profile_training.py")
+
+
+def test_every_script_of_the_reference_has_its_counterpart():
+    """Each ``scripts/*.py`` of the reference maps to an entry point of the
+    port (a module with ``main`` run under ``__main__``), or is one of
+    the measurement tools that wait for the port's benchmark; a script in
+    neither fails, and so does a name in either that is no script."""
+    import re
+
+    scripts = {f for f in os.listdir(os.path.join(ROOT, "scripts"))
+               if f.endswith(".py")}
+    assert scripts - set(SCRIPTS) - set(WAITING_FOR_THE_BENCHMARK) == set()
+    assert set(SCRIPTS) | set(WAITING_FOR_THE_BENCHMARK) <= scripts
+    assert not set(SCRIPTS) & set(WAITING_FOR_THE_BENCHMARK)
+    assert all(re.fullmatch(r"(bench_.*|profile_.*|check_.*_tpu)\.py", f)
+               for f in WAITING_FOR_THE_BENCHMARK)
+    for script, module in SCRIPTS.items():
+        with open(os.path.join(ROOT, "roadsurf_tpu_torch", module)) as f:
+            tree = ast.parse(f.read(), module)
+        assert "main" in _top_level_names(
+            os.path.join(ROOT, "roadsurf_tpu_torch", module), False), script
+        assert any(isinstance(n, ast.If) and "__main__" in ast.unparse(
+            n.test) for n in tree.body), script
+
+
 def test_the_scan_dispatch_and_the_small_names_are_the_references():
     """The names the counterpart test found missing before the scan
     dispatch was ported: ``crs.Transformer`` and ``utils.logging.
@@ -366,6 +426,25 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(state_and_cfg,
                       str(tmp_path / "i"))
     pca, coor = calculate_pca(frame, ["a", "b"], "c", None, device="cpu")
     assert coor.shape == (3, 2) and pca.solver == "full"
+    # python -m roadsurf_tpu_torch.tools.{ablate_seeded, ablate_mask_bits,
+    # ablate_fast_profile, measure_detections} [--device]
+    # (tests/test_torch_ablations*.py run them with device="cpu")
+    from roadsurf_tpu_torch.tools import (ablate_fast_profile,
+                                          ablate_mask_bits, ablate_seeded,
+                                          measure_detections)
+
+    abl = str(tmp_path / "ablate")
+    for call in (lambda: ablate_seeded.run(abl),
+                 lambda: ablate_seeded.main(["--workdir", abl]),
+                 lambda: ablate_mask_bits.run(abl),
+                 lambda: ablate_mask_bits.main(["--workdir", abl]),
+                 lambda: ablate_fast_profile.run(abl),
+                 lambda: ablate_fast_profile.main(["--workdir", abl]),
+                 lambda: measure_detections.run(abl),
+                 lambda: measure_detections.main(["--images", abl])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "ablate").exists()
 
 
 def _module_level(body):
