@@ -26,7 +26,11 @@ exits non-zero:
    the byte bound each K2 case reports ``box_bytes``, the cells each box
    touches summed over the boxes, and edge batches also cross K2's work
    split (R of 37 and 13, a row wider than a staged chunk, a short last
-   band of output rows, P = 28's four columns a warp). K3 (``nms``): the
+   band of output rows, P = 28's four columns a warp). K1's int8 mode
+   also on four levels, P5's 8×8×C block included, with boxes whose level
+   is P5 (``P5_POOLERS``: the reference's int8-pyramid check; its blocked
+   check's fixed s=2 on the parity shapes is K2's ``box_s2``). K3
+   (``nms``): the
    parity profile's NMS problems (RPN: 16·5 problems of 1000 boxes at
    t=0.7; classes: 16 problems of 2000 boxes at t=0.5), N of 1, 63, 64,
    65, 130 and 3000, suppression
@@ -187,16 +191,32 @@ exits non-zero:
    workdir stays for the next phase.
 19. ``ablation_path``: in ``quality_path``'s workdir (the scene reused),
    ``tools.ablate_seeded`` trains one seed (1000, 600 steps) and scores it
-   under fast-R32+int8pyr, parity800 and parity800+int8pyr (gates: the
-   int8 fast profile's F1 at least 0.15 over the baseline's; the parity
-   rows' F1 in [0, 1] with a detection file for every dataset);
-   ``tools.ablate_mask_bits`` scores it with the u8 and the bits mask
-   downlink (gate: |delta F1| <= 0.02); ``tools.measure_detections`` runs
-   make_detections over 512 copies of the training tiles at B=256 with
-   that checkpoint (its inputs scaled as it was trained), at scan_k 1
-   (profiled), 4 and on the int8 stack
-   (gates: records > 0; scan_k 4's records equal to scan_k 1's). K1 and
-   K2 in bf16 and int8, K3 and K5 must have run.
+   under fast-R32+int8pyr and parity800 (gates: the int8 fast profile's
+   F1 at least 0.15 over the baseline's; the parity row's F1 in [0, 1]
+   with a detection file for every dataset; the script's other variants,
+   parity800+int8pyr among them, run in ``tools.ablate_seeded`` on its
+   own); ``tools.ablate_mask_bits`` scores it with the u8 and the bits
+   mask downlink (gate: |delta F1| <= 0.02); ``tools.measure_detections``
+   runs make_detections over 256 copies of the training tiles at B=256
+   with that checkpoint (its inputs scaled as it was trained), at scan_k
+   1 (profiled), 4 and on the int8 stack
+   (gates: records > 0; scan_k 4's records equal to scan_k 1's). K1 in
+   bf16 and int8, K2 in bf16, K3 and K5 must have run.
+19b. ``measure_path``: each profile and microbenchmark of ``tools/``
+   (the reference's ``profile_*`` and ``bench_*`` scripts) once at one
+   step and a cut batch: ``profile_stages`` on the fast profile at B=64
+   in bf16 and on the int8 stack, whose FULL row must equal the engine's
+   output bit for bit; ``profile_heads``, ``profile_proposals`` and
+   ``bench_proposals`` at B=64; ``bench_training`` (the YAML's model at
+   256 px, B=8, scan_k 4: a CUDA graph of 4 steps; gates: finite loss,
+   0 < MFU <= 1) and ``profile_training`` at B=4; ``bench_pooler``,
+   ``bench_int8_gemm`` and ``bench_conv_dtypes`` at B=64 (2 calls a
+   step), ``bench_pooler_variants`` at B=64 (K1's kernel built stopped
+   after each of its phases, three libraries of their own, built
+   together; not kernels of the port). Then the kept engine of ``pipeline.detections.detect_tiles``:
+   two calls at scan_k 4 over 8 tiles with other weights each; the second
+   captures no graph (``CapturedGraph.captures``), its records are a
+   fresh engine's and differ from the first call's.
 20. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
    image (10000² × 4 uint16, EPSG:2056, a nodata border): the host's
    inverse map, the gather (equal to numpy's of the same indices),
@@ -592,6 +612,49 @@ def phase_kernels_k1(mode: str = "bf16") -> list:
             _require(case["finite"] and case["out_of_tolerance"] == 0,
                      f"{name} disagrees with its plain version: {case}")
             cases.append(case)
+    return cases
+
+
+# K1 on four int8 levels of a 256 px tile (P5's 8x8xC block, which the
+# reference's scripts/check_int8_pyramid_pooler_tpu.py checks on its TPU),
+# the edge batch with its last four boxes on P5 (beyond the tile) and on
+# P2: (name, R, P)
+P5_POOLERS = (("box", 32, 7), ("mask", 32, 14))
+P5_BOXES = ((-200, -200, 456, 456), (-100, -300, 356, 556), (0, 0, 256, 256),
+            (1, 1, 9, 9))
+
+
+def phase_kernels_k1_p5() -> list:
+    """K1's int8 mode on P2..P5 (one scale a level), every P5 box pooled
+    from the 8x8 level, against its plain version."""
+    from roadsurf_tpu_torch.ops.roi_align import level_assignment
+    from roadsurf_tpu_torch.ops.roi_align_kernel import roi_align_fused, \
+        roi_align_fused_ref
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = []
+    for pooler, R, P in P5_POOLERS:
+        feats, boxes = _pool_inputs(g, R, True)
+        feats = feats + (torch.randn((B, TILE // 32, TILE // 32, C),
+                                     generator=g, device="cuda")
+                         .to(torch.bfloat16),)
+        boxes[:, -len(P5_BOXES):] = torch.tensor(P5_BOXES, device="cuda",
+                                                 dtype=torch.float32)
+        lvl = level_assignment(boxes, 224, 4, 2, 5).contiguous()
+        q, scales = _quantized(feats)
+        got = roi_align_fused(q, boxes, lvl, P, 2, feat_scales=scales)
+        ref = roi_align_fused_ref(q, boxes, lvl, P, 2, feat_scales=scales)
+        case = {"pooler": f"{pooler}_p5", "mode": "int8", "R": R, "P": P,
+                "levels": [f.shape[1] for f in feats],
+                "boxes_per_level": torch.bincount(
+                    lvl.flatten(), minlength=4).tolist(),
+                **_agreement(got, ref)}
+        _emit({"phase": "kernels", "kernel": "roi_align_int8", **case})
+        _require(case["finite"] and case["out_of_tolerance"] == 0
+                 and case["boxes_per_level"][3] > 0,
+                 f"roi_align_int8 on P2..P5 disagrees or pooled no P5 box: "
+                 f"{case}")
+        cases.append(case)
     return cases
 
 
@@ -3037,11 +3100,11 @@ def phase_quality_path(wd: str) -> dict:
 # the variants of tools/ablate_seeded.py the phase scores: the fast int8
 # stack and the 800 px parity geometry in bf16 and int8 (K1 and K2 in both
 # modes, K3)
-ABLATION_VARIANTS = ("fast-R32+int8pyr", "parity800", "parity800+int8pyr")
+ABLATION_VARIANTS = ("fast-R32+int8pyr", "parity800")
 MASK_DELTA_MAX = 0.02           # |F1(bits) - F1(u8)|, paired: the same weights
-MEASURE_TILES, MEASURE_BATCH, MEASURE_SCAN_K = 512, 256, 4
+MEASURE_TILES, MEASURE_BATCH, MEASURE_SCAN_K = 256, 256, 4
 ABLATION_KERNELS = ("roi_align", "roi_align_int8", "roi_align_blocked",
-                    "roi_align_blocked_int8", "nms", "roi_align_backward")
+                    "nms", "roi_align_backward")
 
 
 def _record_keys(records: list) -> list:
@@ -3062,13 +3125,14 @@ def phase_ablation_path(wd: str) -> dict:
     row's F1 in [0, 1] and a detection file for every dataset. (2)
     ``tools.ablate_mask_bits.run`` on that seed: the u8 and the bits
     downlink, paired; gate: |delta| <= ``MASK_DELTA_MAX``. (3)
-    ``tools.measure_detections.run`` over 512 copies of the training tiles
+    ``tools.measure_detections.run`` over 256 copies of the training tiles
     with the seed's checkpoint at B=256, its inputs scaled as it was
     trained (``from_scratch``; at the script's unit std the checkpoint
     fires ~12 detections over 512 tiles): scan_k 1 (profiled: the
     device's busy share), scan_k 4 (CUDA graphs) and the int8 stack;
     gates: records > 0, and the records at scan_k 4 equal to scan_k 1's.
-    K1 and K2 in bf16 and int8, K3 and K5 must each have launched."""
+    K1 in bf16 and int8, K2 in bf16, K3 and K5 must each have
+    launched."""
     from roadsurf_tpu_torch.tools import (ablate_mask_bits, ablate_seeded,
                                           measure_detections)
 
@@ -3108,7 +3172,7 @@ def phase_ablation_path(wd: str) -> dict:
              f"ablation_path: fast-R32+int8pyr's balanced F1 {fast['f1b']} "
              f"is not {F1_OVER_BASELINE} over the baseline's "
              f"{fast['baseline_f1']}")
-    for name in ("parity800", "parity800+int8pyr"):
+    for name in ABLATION_VARIANTS[1:]:
         r = rows[name]
         want = {f"{ds}_detections_at_0dot05_threshold.gpkg"
                 for ds in datasets}
@@ -3127,6 +3191,168 @@ def phase_ablation_path(wd: str) -> dict:
     for k in ABLATION_KERNELS:
         _require(counts[k] > 0,
                  f"ablation_path: {k} never launched: {counts}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the profiles and microbenchmarks of tools/
+
+MEASURE_CUT_B = 64              # the tools' cut batch (their scripts': 512)
+DETECT_TILES, DETECT_BATCH = 8, 2
+
+
+def _detect_state(seed: int) -> dict:
+    """Seeded fast-profile weights whose masks fill their boxes (the mask
+    predictor's bias at +3: untrained masks trace into slivers)."""
+    from roadsurf_tpu_torch.models import fast_profile, init_params
+    from roadsurf_tpu_torch.utils.weights import from_jax_params
+
+    state = from_jax_params(init_params(fast_profile(post_nms_topk=32),
+                                        torch.Generator().manual_seed(seed)))
+    state["mask_head"]["predictor"]["b"].fill_(3.0)
+    return state
+
+
+def _kept_engine_check(tmp_dir: str) -> dict:
+    """Two ``detect_tiles`` calls at scan_k 4 with other weights: the
+    second reuses the first's engine and graph (no capture) and gives a
+    fresh engine's records, unlike the first call's."""
+    from roadsurf_tpu_torch.io.geotiff import write_geotiff
+    from roadsurf_tpu_torch.models import fast_profile
+    from roadsurf_tpu_torch.pipeline import detections
+    from roadsurf_tpu_torch.utils.graphs import CapturedGraph
+
+    rng = np.random.default_rng(11)
+    paths = []
+    for i in range(DETECT_TILES):
+        paths.append(os.path.join(tmp_dir, f"t{i}.tif"))
+        write_geotiff(paths[-1], rng.integers(0, 255, (TILE, TILE, 3),
+                                              np.uint8),
+                      (0.0, 0.0, float(TILE), float(TILE)))
+    bounds = [(0.0, 0.0, float(TILE), float(TILE))] * len(paths)
+    cfg = fast_profile(post_nms_topk=32)
+    kw = {"batch_size": DETECT_BATCH, "scan_k": 4, "device": "cuda"}
+    detections.drop_engines()
+    first = detections.detect_tiles(_detect_state(0), cfg, paths, bounds,
+                                    **kw)
+    captures = CapturedGraph.captures
+    second = detections.detect_tiles(_detect_state(1), cfg, paths, bounds,
+                                     **kw)
+    second_captures = CapturedGraph.captures - captures
+    detections.drop_engines()
+    fresh = detections.detect_tiles(_detect_state(1), cfg, paths, bounds,
+                                    **kw)
+    detections.drop_engines()
+    res = {"records": [len(first), len(second), len(fresh)],
+           "second_call_captures": second_captures,
+           "second_equals_fresh": _record_keys(second) == _record_keys(fresh),
+           "first_differs": _record_keys(first) != _record_keys(second)}
+    _require(second_captures == 0 and res["second_equals_fresh"]
+             and res["first_differs"] and len(second) > 0,
+             f"detect_tiles' kept engine: {res}")
+    return res
+
+
+def phase_measure_path() -> dict:
+    """measure_path: each tool of ``tools/`` that ports a reference
+    profile or microbenchmark, through its ``run`` at one step and a cut
+    batch, with its checks (the phase's docstring entry, 19b)."""
+    import shutil
+    import tempfile
+
+    from roadsurf_tpu_torch.engine import TileInferenceEngine
+    from roadsurf_tpu_torch.models import fast_profile
+    from roadsurf_tpu_torch.models.config import ModelConfig
+    from roadsurf_tpu_torch.ops.cuda_build import BUILD_DIR
+    from concurrent.futures import ThreadPoolExecutor
+
+    from roadsurf_tpu_torch.ops import cuda_build
+    from roadsurf_tpu_torch.tools import (bench_conv_dtypes, bench_int8_gemm,
+                                          bench_pooler, bench_pooler_variants,
+                                          bench_proposals, bench_training,
+                                          profile_heads, profile_proposals,
+                                          profile_stages, profile_training)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    # the pooler's attribution libraries (its kernel stopped after each
+    # phase), built together
+    with ThreadPoolExecutor(len(bench_pooler_variants.STAGES)) as ex:
+        stage_builds = list(ex.map(lambda n: cuda_build.build(
+            "roi_align", (("ROI_ALIGN_STAGE", n),))["seconds"],
+            [n for _, n in bench_pooler_variants.STAGES]))
+    _reset_counts()
+    res: dict = {"phase": "measure_path", "tools": {},
+                 "stage_build_s": stage_builds}
+    one = {"BENCH_STEPS": "1"}
+    for label, env in (("bf16", one), ("int8", dict(one, BENCH_INT8="1"))):
+        rows = profile_stages.run(env=env, batch=MEASURE_CUT_B)
+        # the FULL row against the engine's output on the same tiles
+        cfg = profile_stages.settings(env)["cfg"]
+        state = profile_stages.model_state(cfg, dev)
+        images = profile_stages.tile_batches(MEASURE_CUT_B, 1, dev)[0]
+        with torch.inference_mode():
+            full = dict(profile_stages.stages(state, cfg))[
+                "+mask_head=FULL"](images)
+        eng = TileInferenceEngine(state, cfg, batch_size=MEASURE_CUT_B,
+                                  mask_format="logits", device="cuda")
+        out = next(iter(eng.run([images.cpu().numpy()])))
+        equal = sorted(out) == sorted(full) and all(
+            np.array_equal(out[k], full[k].cpu().numpy()) for k in out)
+        res["tools"][f"profile_stages_{label}"] = {
+            "rows": {r["stage"]: r["ms_per_batch"] for r in rows},
+            "full_equals_engine": equal}
+        _require(equal and len(rows) == len(profile_stages.STAGE_NAMES),
+                 f"measure_path: profile_stages {label}: the FULL row is "
+                 f"not the engine's output")
+        del eng, state, images, full, out
+    env = dict(one)
+    res["tools"]["profile_heads"] = [r["ms_per_batch"] for r in
+                                     profile_heads.run(env=env,
+                                                       batch=MEASURE_CUT_B)]
+    res["tools"]["profile_proposals"] = [
+        r["ms_per_batch"] for r in profile_proposals.run(
+            env=env, batch=MEASURE_CUT_B)]
+    res["tools"]["bench_proposals"] = [
+        r["ms_per_batch"] for r in bench_proposals.run(
+            env=env, batch=MEASURE_CUT_B)]
+    train = bench_training.bench_one(ModelConfig(), 256, 8, 1, "256px",
+                                     scan_k=4, device="cuda")
+    res["tools"]["bench_training"] = train
+    _require(np.isfinite(train["loss"]) and 0 < train["mfu"] <= 1,
+             f"measure_path: bench_training: {train}")
+    rows = profile_training.run(env=env, batch=4)
+    res["tools"]["profile_training"] = [r["ms_per_step"] for r in rows]
+    _require(all(np.isfinite(r["scalar"]) for r in rows),
+             f"measure_path: profile_training: {rows}")
+    res["tools"]["bench_pooler"] = bench_pooler.run(
+        env={"BENCH_CASES": "R=32", **env}, batch=MEASURE_CUT_B)
+    _require(not any("error" in r for r in res["tools"]["bench_pooler"]),
+             f"measure_path: bench_pooler: {res['tools']['bench_pooler']}")
+    variants = bench_pooler_variants.run(env=env, batch=MEASURE_CUT_B)
+    res["tools"]["bench_pooler_variants"] = {
+        r["case"]: r.get("event_ms_per_batch") for r in variants}
+    _require(all("ms_per_batch" in r for r in variants
+                 if r.get("counterpart", True) is not None),
+             f"measure_path: bench_pooler_variants: {variants}")
+    micro = {"BENCH_KREP": "2", **env}
+    res["tools"]["bench_int8_gemm"] = len(bench_int8_gemm.run(
+        env=micro, batch=MEASURE_CUT_B))
+    res["tools"]["bench_conv_dtypes"] = len(bench_conv_dtypes.run(
+        env=micro, batch=MEASURE_CUT_B))
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        res["kept_engine"] = _kept_engine_check(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = _read_counts()
+    res["seconds"] = time.perf_counter() - t0
+    _emit(res)
+    for k in ("roi_align", "roi_align_int8", "roi_align_blocked",
+              "roi_align_backward", "int8_gemm"):
+        _require(res["launches"][k] > 0,
+                 f"measure_path: {k} never launched: {res['launches']}")
     return res
 
 
@@ -4031,6 +4257,7 @@ def main() -> int:
              "int8_gemm": phase_kernels_k4(),
              "roi_align_backward": phase_kernels_k5(),
              "roi_align_backward_f32": phase_kernels_k5(f32=True)}
+    phase_kernels_k1_p5()
     runs = {}
     for label in PATHS:
         fn = phase_main_path_parity if "parity" in label \
@@ -4046,6 +4273,9 @@ def main() -> int:
     del eng, batches
     torch.cuda.empty_cache()
     runs["host_stage"] = phase_host_stage()
+    from roadsurf_tpu_torch.pipeline.detections import drop_engines
+
+    drop_engines()
     torch.cuda.empty_cache()
     runs["train_path"] = phase_train_path()
     torch.cuda.empty_cache()
@@ -4057,6 +4287,8 @@ def main() -> int:
     runs["dp_infer"] = phase_dp_infer()
     torch.cuda.empty_cache()
     runs["scan_path"] = phase_scan_path()
+    torch.cuda.empty_cache()
+    runs["measure_path"] = phase_measure_path()
     torch.cuda.empty_cache()
     runs["f32_forward"] = phase_f32_forward()
     torch.cuda.empty_cache()
@@ -4072,6 +4304,7 @@ def main() -> int:
         runs["ablation_path"] = phase_ablation_path(wd)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
+    drop_engines()
     torch.cuda.empty_cache()
     phase_cog_path()
     phase_stats_path()

@@ -92,6 +92,25 @@ constexpr int kStageBytes = 49152;     // a slot of bf16 cells
 constexpr int kStageBytes8 = 24576;    // a slot of int8 cells; a bf16 work
                                        // buffer of twice that holds its cells
 
+// The kernel's phases, for attributing its time (tools/
+// bench_pooler_variants.py builds a library of each with
+// -DROI_ALIGN_STAGE=n): it stops after the weights are in shared memory
+// (0), after each chunk is staged (1: its bulk copies landed and, for int8
+// levels, its cells dequantized), after the x-pass (2: each staged row's
+// sums added into the band's first row unweighted, so that the pass is
+// kept), or runs whole (3). Only 3 computes the pooler; it is the default,
+// and every build of K1 and K2 takes it.
+#ifndef ROI_ALIGN_STAGE
+#define ROI_ALIGN_STAGE 3
+#endif
+constexpr int kStageWeights = 0;
+constexpr int kStageCopy = 1;
+constexpr int kStageXPass = 2;
+constexpr int kStageFull = 3;
+constexpr int kStage = ROI_ALIGN_STAGE;
+static_assert(kStage >= kStageWeights && kStage <= kStageFull,
+              "ROI_ALIGN_STAGE is 0, 1, 2 or 3");
+
 // Bytes of the staging ring (and, for int8 levels, the work buffer) in
 // front of the weight tables.
 __host__ __device__ constexpr int ring_bytes(bool int8) {
@@ -469,6 +488,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, QPW == 2 ? 2 : 1)
   g.chunks = rx0 > rx1 || ry0 > ry1 ? 0
              : g.segs == 1          ? (g.ny + g.rows_per - 1) / g.rows_per
                                     : g.ny * g.segs;
+  if constexpr (kStage == kStageWeights) g.chunks = 0;
 
   // one thread copies a chunk: one bulk copy per row segment (contiguous in
   // NHWC), all counted on the slot's barrier
@@ -502,6 +522,16 @@ __global__ void __launch_bounds__(32 * kMaxWarps, QPW == 2 ? 2 : 1)
     }
   // the y-pass of row y into the band's rows that weigh it
   auto ypass = [&](int y, float(&t)[QPW][kLaneC]) {
+    if constexpr (kStage == kStageXPass) {
+#pragma unroll
+      for (int j = 0; j < QPW; ++j)
+#pragma unroll
+        for (int e = 0; e < kLaneC; ++e) {
+          acc[0][j][e] += t[j][e];
+          t[j][e] = 0.0f;
+        }
+      return;
+    }
     const int bins = rows[y - sy.x];
 #pragma unroll
     for (int i = 0; i < kBand; ++i) {
@@ -540,6 +570,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, QPW == 2 ? 2 : 1)
     __syncthreads();
     if (threadIdx.x == 0 && c + kAhead < g.chunks) issue(c + kAhead);
     if (!active) continue;
+    if constexpr (kStage == kStageCopy) continue;
     const Cell* buf = cells + lane * kLaneC;
     // the x-pass of each row for each of the warp's columns, two rows at a
     // time; a row cut into segments carries its sums to its last segment

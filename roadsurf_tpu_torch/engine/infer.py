@@ -34,7 +34,12 @@ its scan-k dispatch included:
   the eager loop above;
 * ``stats`` keeps the host's waits: ``h2d_s`` (staging + issuing the
   upload) and ``d2h_s`` (waiting for a batch's result), beside
-  ``tiles_seen`` and ``elapsed``.
+  ``tiles_seen`` and ``elapsed``;
+* :meth:`~TileInferenceEngine.load_state` gives a built engine new
+  weights of the same layout, so that a caller keeps one engine, its
+  pinned buffers and its captured graphs across calls (the reference's
+  compiled function outlives a call through its ``lru_cache``;
+  ``pipeline.detections.detect_tiles`` keeps engines so).
 
 On the CPU (``device="cpu"``) the same loop runs synchronously, a group
 as its forwards one after the other.
@@ -56,6 +61,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.mask_rcnn import capture_scan, check_config, forward_prepared
 from ..utils.device import compute_dtype, resolve_device
+from ..utils.graphs import tensor_leaves
 from ..utils.weights import state_to
 
 logger = logging.getLogger(__name__)
@@ -118,6 +124,32 @@ def prefetch_iter(it, depth: int = 2):
         yield item
 
 
+def _layout(tree):
+    """A state tree's keys, each tensor's shape, dtype and strides, and
+    every other leaf's value: what a captured graph bakes in besides the
+    tensors' contents."""
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape), tree.dtype, tree.stride()
+    if isinstance(tree, dict):
+        return tuple((k, _layout(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_layout(v) for v in tree)
+    return tree
+
+
+def _private(tree):
+    """Copies of a state tree's tensors, owned by the engine: a graph
+    captured on them keeps reading them, and new weights are copied into
+    them, never into a caller's tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _private(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_private(v) for v in tree]
+    return tree
+
+
 class _Replica:
     """One device's copy of the state, its side stream and its pinned
     input slots."""
@@ -177,6 +209,27 @@ class TileInferenceEngine:
         self.tiles_seen = 0
         self.elapsed = 0.0
         self.stats = {"h2d_s": 0.0, "d2h_s": 0.0}
+
+    def load_state(self, state: dict):
+        """Run the next batches on ``state``'s weights. A replica with a
+        captured graph copies them into its own tensors, the addresses the
+        graph reads, where the tree has the layout it was captured on
+        (:func:`_layout`: the same shapes, types and strides, the same
+        non-tensor values); otherwise the replica takes the placed state
+        and drops its graph, which its next group captures anew. A graph
+        never replays the previous weights."""
+        dtype = compute_dtype(self.cfg)
+        for rep in self.replicas:
+            placed = state_to(state, rep.device, dtype)
+            if rep.graph is not None and _layout(placed) == _layout(
+                    rep.state):
+                with torch.inference_mode():
+                    for d, s in zip(tensor_leaves(rep.state),
+                                    tensor_leaves(placed)):
+                        d.copy_(s, non_blocking=True)
+            else:
+                rep.state, rep.graph = placed, None
+        self.state = self.replicas[0].state
 
     def _stage(self, rep: _Replica, slot: int,
                images: np.ndarray) -> torch.Tensor:
@@ -280,6 +333,11 @@ class TileInferenceEngine:
         changes); ``graph.meta`` unpacks its rows."""
         if rep.graph is None or tuple(rep.graph.static_in.shape) != shape:
             rep.graph = None            # its pool goes before the next
+            # the graph reads the engine's own copy of the weights
+            # (load_state copies new ones into it)
+            rep.state = _private(rep.state)
+            if rep is self.replicas[0]:
+                self.state = rep.state
             meta = []
 
             def per_slice(x):

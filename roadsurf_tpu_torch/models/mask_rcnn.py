@@ -126,24 +126,84 @@ def forward_features(state: dict, x: torch.Tensor, cfg: ModelConfig,
     return [f.permute(0, 2, 3, 1) for f in _backbone_fpn(state, q, x, dtype)]
 
 
-def _features(state, q, x, cfg, dtype):
-    """Backbone, FPN and RPN head, each int8 where ``q`` has its group;
-    -> (P-levels, objectness, deltas, the levels' scales or None)."""
+def preprocessed(images: torch.Tensor, cfg: ModelConfig, dtype,
+                 S: int) -> torch.Tensor:
+    """:func:`preprocess` in ``dtype``, NCHW in channels_last memory: the
+    backbone's float input."""
+    return preprocess(images, cfg, S).to(dtype).permute(0, 3, 1, 2) \
+        .contiguous(memory_format=torch.channels_last)
+
+
+def backbone_input(images: torch.Tensor, cfg: ModelConfig, q: dict, dtype,
+                   S: int) -> torch.Tensor:
+    """What the backbone takes: the raw uint8 tiles (an NCHW view) where
+    the int8 backbone has its uint8-direct stem (``quant.
+    quantize_stem_u8``: the preprocess folds into the quantized stem) and
+    the tiles are its size, else :func:`preprocessed`."""
+    stem_u8 = q.get("backbone", {}).get("stem_u8")
+    if (stem_u8 is not None and images.dtype == torch.uint8
+            and images.shape[1] == S and images.shape[2] == S
+            and stem_u8["bias"].shape[-1] == -(-S // 2)):
+        return images.permute(0, 3, 1, 2)
+    return preprocessed(images, cfg, dtype, S)
+
+
+def pyramid_levels(state, q, x, cfg, dtype):
+    """Backbone and FPN, each int8 where ``q`` has its group -> (P-levels
+    NCHW channels_last, the levels' scales or None)."""
     pyr = q.get("pyr") if cfg.int8_pyramid else None
     if pyr is not None:
         # int8 pyramid: stage outputs, FPN and P-levels stay int8; the RPN
         # head and the poolers read the levels in their scales
         res = resnet_forward_int8(q["backbone"], x, out_sas=pyr["res_sa"])
-        fpn_feats = fpn_forward_int8_pyr(q["fpn"], pyr, res, dtype)
-        logits, deltas = rpn_head_forward_int8_pyr(q["rpn"], pyr, fpn_feats)
-        return fpn_feats, logits, deltas, pyr["out_sa"]
-    fpn_feats = _backbone_fpn(state, q, x, dtype)
+        return fpn_forward_int8_pyr(q["fpn"], pyr, res, dtype), \
+            pyr["out_sa"]
+    return _backbone_fpn(state, q, x, dtype), None
+
+
+def rpn_outputs(state, q, fpn_feats, cfg, dtype):
+    """The RPN head on the P-levels, int8 where ``q`` has its group ->
+    (objectness, deltas) per level."""
+    pyr = q.get("pyr") if cfg.int8_pyramid else None
+    if pyr is not None:
+        return rpn_head_forward_int8_pyr(q["rpn"], pyr, fpn_feats)
     if "rpn" in q:
-        logits, deltas = rpn_head_forward_int8(q["rpn"], fpn_feats)
-    else:
-        logits, deltas = rpn_head_forward(
-            state["rpn"], [f.to(dtype) for f in fpn_feats], cfg.num_anchors)
-    return fpn_feats, logits, deltas, None
+        return rpn_head_forward_int8(q["rpn"], fpn_feats)
+    return rpn_head_forward(state["rpn"], [f.to(dtype) for f in fpn_feats],
+                            cfg.num_anchors)
+
+
+def propose(logits, deltas, cfg: ModelConfig, S: int, device):
+    """Proposal selection at the config's test budgets -> (proposals (B,
+    K, 4), scores (B, K))."""
+    anchors = anchors_on(S, cfg.fpn_strides, cfg.anchor_sizes,
+                         cfg.anchor_aspect_ratios, cfg.anchor_offset, device)
+    gate_geom = [(cfg.num_anchors, cfg.anchor_aspect_ratios, st, sz)
+                 for st, sz in zip(cfg.fpn_strides, cfg.anchor_sizes)]
+    return select_proposals(
+        logits, deltas, anchors, S, cfg.rpn_pre_nms_topk_test,
+        cfg.rpn_post_nms_topk_test, cfg.rpn_nms_thresh,
+        fast_nms=cfg.fast_nms, local_max_gate=cfg.rpn_local_max_gate,
+        gate_geom=gate_geom)
+
+
+def pool_levels(fpn_feats: list) -> list:
+    """P2..P5 as contiguous NHWC maps, what the poolers read."""
+    return [f.permute(0, 2, 3, 1).contiguous() for f in fpn_feats[:4]]
+
+
+def class_masks(state, q, box_feats, dets: dict, cfg: ModelConfig,
+                feat_scales) -> torch.Tensor:
+    """The mask head on the detections' boxes, each detection's own
+    class channel -> mask logits (B, D, 2P, 2P), float32."""
+    mask_logits = mask_head_forward(state["mask_head"], box_feats,
+                                    dets["boxes"], cfg, qp=q.get("mask"),
+                                    feat_scales=feat_scales)
+    cls = dets["classes"].long()
+    return torch.gather(
+        mask_logits, -1,
+        cls[:, :, None, None, None].expand(mask_logits.shape[:-1] + (1,))
+    )[..., 0]
 
 
 def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
@@ -154,31 +214,13 @@ def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
     native = images.shape[1]
     S = cfg.min_size_test if cfg.min_size_test else native
     q = _quant_tree(state, cfg)
-    stem_u8 = q.get("backbone", {}).get("stem_u8")
-    if (stem_u8 is not None and images.dtype == torch.uint8
-            and images.shape[1] == S and images.shape[2] == S
-            and stem_u8["bias"].shape[-1] == -(-S // 2)):
-        # uint8-direct stem (quant.quantize_stem_u8): the preprocess folds
-        # into the quantized stem, raw tiles feed the backbone
-        x = images.permute(0, 3, 1, 2)
-    else:
-        x = preprocess(images, cfg, S).to(dtype).permute(0, 3, 1, 2) \
-            .contiguous(memory_format=torch.channels_last)
-    fpn_feats, logits, deltas, feat_scales = _features(state, q, x, cfg,
-                                                       dtype)
-    anchors = anchors_on(S, cfg.fpn_strides, cfg.anchor_sizes,
-                         cfg.anchor_aspect_ratios, cfg.anchor_offset,
-                         images.device)
-    gate_geom = [(cfg.num_anchors, cfg.anchor_aspect_ratios, st, sz)
-                 for st, sz in zip(cfg.fpn_strides, cfg.anchor_sizes)]
-    proposals, prop_scores = select_proposals(
-        logits, deltas, anchors, S, cfg.rpn_pre_nms_topk_test,
-        cfg.rpn_post_nms_topk_test, cfg.rpn_nms_thresh,
-        fast_nms=cfg.fast_nms, local_max_gate=cfg.rpn_local_max_gate,
-        gate_geom=gate_geom)
+    x = backbone_input(images, cfg, q, dtype, S)
+    fpn_feats, feat_scales = pyramid_levels(state, q, x, cfg, dtype)
+    logits, deltas = rpn_outputs(state, q, fpn_feats, cfg, dtype)
+    proposals, prop_scores = propose(logits, deltas, cfg, S, images.device)
 
     # box/mask pool from P2..P5, NHWC views of the channels_last maps
-    box_feats = [f.permute(0, 2, 3, 1).contiguous() for f in fpn_feats[:4]]
+    box_feats = pool_levels(fpn_feats)
     class_logits, box_deltas = box_head_forward(
         state["box_head"], box_feats, proposals, cfg, qp=q.get("box"),
         feat_scales=feat_scales)
@@ -186,14 +228,7 @@ def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
                                 prop_scores, cfg, S)
 
     if with_masks:
-        mask_logits = mask_head_forward(
-            state["mask_head"], box_feats, dets["boxes"], cfg,
-            qp=q.get("mask"), feat_scales=feat_scales)
-        cls = dets["classes"].long()
-        masks = torch.gather(
-            mask_logits, -1,
-            cls[:, :, None, None, None].expand(mask_logits.shape[:-1] + (1,))
-        )[..., 0]
+        masks = class_masks(state, q, box_feats, dets, cfg, feat_scales)
         if mask_format in ("logits", "both"):
             dets["mask_logits"] = masks
         if mask_format in ("u8", "both"):

@@ -36,22 +36,26 @@ def nvcc_path() -> str:
     return path
 
 
-def build(name: str) -> dict:
+def build(name: str, defines: tuple = ()) -> dict:
     """Compile ``csrc/<name>.cu`` into ``_build/`` unless a library of the
-    same source, headers and flags is there. Returns {"path", "seconds",
+    same source, headers and flags is there. ``defines``: (macro, value)
+    pairs passed as ``-D`` (a variant for measurement, a library of its
+    own; the kernels' builds take none). Returns {"path", "seconds",
     "cached", "log"} (``log``: nvcc's output, with ptxas's register and
     spill counts)."""
     source = CSRC / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *(f"-D{m}={v}" for m, v in defines))
     key = hashlib.sha256(b"".join(
         p.read_bytes() for p in (source, *sorted(CSRC.glob("*.cuh"))))
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"{name}_{key[:16]}.so"
+        + " ".join(flags).encode()).hexdigest()
+    variant = "".join(f"_{m.lower()}{v}" for m, v in defines)
+    lib = BUILD_DIR / f"{name}{variant}_{key[:16]}.so"
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "cached": True, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+    proc = subprocess.run([nvcc_path(), *flags, "-o", str(tmp),
                            str(source)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -63,9 +67,10 @@ def build(name: str) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = ctypes.CDLL(build(name)["path"])
+def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (with ``defines``, see
+    :func:`build`), built on first use."""
+    lib = ctypes.CDLL(build(name, defines)["path"])
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p

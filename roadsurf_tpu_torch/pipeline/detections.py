@@ -22,8 +22,14 @@ a device, ``engine/infer.py``), as the reference's engine does over its
 mesh of ``jax.devices()``; ``n_devices`` defaults likewise to every
 visible GPU (one device on the CPU).
 
-Differences from the reference: no scan-k dispatch (one batch a
-dispatch); the random weights
+``detect_tiles`` keeps its engines across calls, as the reference keeps
+its compiled function (``lru_cache``): one engine, with its pinned
+buffers and its captured graph at ``scan_k`` > 1, for each (config, mask
+format, ``scan_k``, batch size, devices), the last ``ENGINES_KEPT`` of
+them; a call hands the kept engine its weights (``TileInferenceEngine.
+load_state``), so a graph never replays another call's weights.
+
+Differences from the reference: the random weights
 used when no checkpoint is found come from ``torch.Generator`` seed 0
 (torch cannot reproduce ``jax.random``); the stage times can also be
 handed back to the caller (``stats``). The records come from the C++
@@ -39,6 +45,7 @@ import json
 import logging
 import os
 import threading
+from collections import OrderedDict
 from time import perf_counter
 
 import numpy as np
@@ -151,6 +158,39 @@ def engine_devices(device, n_devices: int | None = None) -> list:
     return [torch.device("cuda", i) for i in range(n)]
 
 
+ENGINES_KEPT = 4
+_ENGINES: OrderedDict = OrderedDict()
+
+
+def kept_engine(state: dict, cfg: ModelConfig, batch_size: int,
+                mask_format: str, devices: list, scan_k: int):
+    """The engine of (engine class, config, mask format, ``scan_k``,
+    batch size, devices) made by an earlier call, given ``state``'s
+    weights, or a new one; the ``ENGINES_KEPT`` most recently used are
+    kept."""
+    from ..engine.infer import TileInferenceEngine
+
+    key = (TileInferenceEngine, cfg, mask_format, scan_k, batch_size,
+           tuple(devices))
+    engine = _ENGINES.pop(key, None)
+    if engine is None:
+        engine = TileInferenceEngine(state, cfg, batch_size=batch_size,
+                                     with_masks=True,
+                                     mask_format=mask_format,
+                                     devices=devices, scan_k=scan_k)
+    else:
+        engine.load_state(state)
+    _ENGINES[key] = engine
+    while len(_ENGINES) > ENGINES_KEPT:
+        _ENGINES.popitem(last=False)
+    return engine
+
+
+def drop_engines():
+    """Let the kept engines go (their device memory with them)."""
+    _ENGINES.clear()
+
+
 def detect_tiles(state: dict, cfg: ModelConfig, image_paths: list[str],
                  tile_bounds: list, batch_size: int = 16,
                  score_thresh: float = 0.05, rdp_eps: float = 0.75,
@@ -164,12 +204,13 @@ def detect_tiles(state: dict, cfg: ModelConfig, image_paths: list[str],
     The engine shards each batch over ``n_devices`` devices
     (:func:`engine_devices`) and runs ``scan_k`` batches a dispatch (a
     CUDA graph of ``scan_k`` forwards on the card; the reference's
-    ``scan_k``).
+    ``scan_k``); the engine is kept for the next call of the same
+    settings (:func:`kept_engine`).
     ``stats``, if given, gains the stage breakdown: ``wall_s`` (this
     call), ``decode_s``, ``h2d_s``, ``d2h_s``, ``vectorize_s``
     (thread-seconds), and the counts ``tiles``, ``detections`` (valid, at
     or above the threshold) and ``records``."""
-    from ..engine.infer import TileInferenceEngine, prefetch_iter
+    from ..engine.infer import prefetch_iter
 
     t_call = perf_counter()
     want_int8 = cfg.int8_scope or ("backbone" if cfg.int8_backbone else "")
@@ -187,10 +228,10 @@ def detect_tiles(state: dict, cfg: ModelConfig, image_paths: list[str],
         state["quant"] = prepare_quantized(state, cal, cfg, device=device)
         logger.info(f"int8 ({want_int8}): calibrated on {len(cal)} tiles")
 
-    engine = TileInferenceEngine(state, cfg, batch_size=batch_size,
-                                 with_masks=True, mask_format=mask_format,
-                                 devices=engine_devices(device, n_devices),
-                                 scan_k=scan_k)
+    engine = kept_engine(state, cfg, batch_size, mask_format,
+                         engine_devices(device, n_devices), scan_k)
+    # the kept engine's waits add up over calls: this call's are the rise
+    waits0 = dict(getattr(engine, "stats", {}))
     n = len(image_paths)
     stage_s = {"decode": 0.0, "vectorize": 0.0}
     lock = threading.Lock()
@@ -240,7 +281,8 @@ def detect_tiles(state: dict, cfg: ModelConfig, image_paths: list[str],
                             "tiles dispatched")
         for fut in all_futs:                 # in-order: deterministic output
             records.extend(fut.result())
-    eng_stats = getattr(engine, "stats", {})
+    eng_stats = {k: v - waits0.get(k, 0.0)
+                 for k, v in getattr(engine, "stats", {}).items()}
     logger.info(
         "make_detections stage breakdown: decode %.1fs, h2d %.1fs, "
         "d2h %.1fs, vectorize %.1fs (thread-seconds)" % (

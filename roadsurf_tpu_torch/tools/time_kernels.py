@@ -2,7 +2,7 @@
 one card, so that two versions of a kernel are compared within one call.
 
     python3 roadsurf_tpu_torch/tools/time_kernels.py \\
-        --kernel {k1,k2,k4,k5} [--k1-shapes] [--rounds N] TREE...
+        --kernel {k1,k2,k3,k4,k5} [--k1-shapes] [--rounds N] TREE...
 
 The inputs are those of this checkout's ``chip_smoke.py`` (its
 ``_pool_inputs``, ``_parity_pool_inputs``, ``_quantized``,
@@ -20,6 +20,11 @@ alternate them (A B A B ...).
   and the edge batch's box pooler in both modes; untimed, edge batches at
   P=14 and P=28 (R=13). With ``--k1-shapes``, K2's kernel at K1's cases
   instead (fixed s=2 on the fast profile's levels).
+- ``k3`` (``nms_keep_mask``): the cases of ``chip_smoke._nms_cases``
+  (the RPN's per-level problems and the class NMS at the parity profile's
+  sizes, and the edge problems), each sorted by score as the NMS sorts
+  it: the keep mask against the plain version's, bit for bit, and the
+  time of the call (its pair and sweep phases).
 - ``k4`` (``int8_gemm``): the seven GEMMs of ``chip_smoke.GEMMS`` in the
   raw, bf16 and int8 modes, beside ``torch._int_mm`` (raw), each as
   ``chip_smoke._gemm_case`` times it: event time, and the device time of
@@ -177,13 +182,33 @@ def _k5(tree_mod, cs, emit):
     return ok
 
 
+def _k3(tree_mod, cs, emit):
+    import torch
+
+    kernel, plain = tree_mod
+    g = torch.Generator(device="cuda").manual_seed(2)
+    ok = True
+    for name, boxes, scores, t in cs._nms_cases(g):
+        order = torch.sort(scores, dim=-1, descending=True,
+                           stable=True).indices
+        sb = torch.gather(boxes, -2, order[..., None].expand(boxes.shape)
+                          ).contiguous()
+        ss = torch.gather(scores, -1, order).contiguous()
+        bad = int((kernel(sb, ss, t) != plain(sb, ss, t)).sum())
+        ok &= bad == 0
+        emit({"case": name, "mode": "f32", "problems": ss.numel()
+              // ss.shape[-1], "N": ss.shape[-1], "mismatches": bad,
+              "ms": cs._time_ms(lambda: kernel(sb, ss, t), 20)})
+    return ok
+
+
 def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
     cs = _inputs_module()
     sys.path.insert(0, tree)
     os.chdir(tree)
     from roadsurf_tpu_torch.ops import cuda_build
 
-    source = {"k1": "roi_align", "k2": "roi_align_blocked",
+    source = {"k1": "roi_align", "k2": "roi_align_blocked", "k3": "nms",
               "k4": "int8_gemm", "k5": "roi_align_backward"}[kernel_name]
     if rnd == 0:
         r = cuda_build.build(source)
@@ -195,7 +220,11 @@ def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
         print(json.dumps({"tree": tree, "round": rnd, "kernel": kernel_name,
                           **rec}), flush=True)
 
-    if kernel_name == "k4":
+    if kernel_name == "k3":
+        from roadsurf_tpu_torch.ops.nms_kernel import nms_keep_mask, \
+            nms_keep_mask_ref
+        ok = _k3((nms_keep_mask, nms_keep_mask_ref), cs, emit)
+    elif kernel_name == "k4":
         ok = _gemms(cs, emit)
     elif kernel_name == "k5":
         from roadsurf_tpu_torch.ops.roi_align_backward_kernel import \
@@ -215,7 +244,7 @@ def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("k1", "k2", "k4", "k5"),
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5"),
                     required=True)
     ap.add_argument("--k1-shapes", action="store_true",
                     help="k2 only: run K2's kernel at K1's cases")

@@ -21,7 +21,7 @@ engine's ``scan_k``). A :class:`CapturedGraph`:
 
 ``capture_s`` (host seconds of the capture) and ``pool_bytes`` (device
 memory the capture reserved: its pool) are the readings ``chip_smoke.py``
-reports.
+reports; ``CapturedGraph.captures`` counts the captures a process made.
 """
 
 from __future__ import annotations
@@ -56,7 +56,10 @@ class CapturedGraph:
     an error). ``outputs`` is what ``body`` returned: static tensors that
     every :meth:`replay` writes anew."""
 
+    captures = 0
+
     def __init__(self, body, warm, device: torch.device):
+        CapturedGraph.captures += 1
         self.device = device
         with torch.cuda.device(device):
             current = torch.cuda.current_stream(device)

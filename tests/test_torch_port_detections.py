@@ -137,11 +137,17 @@ def _synthetic_dets(n: int, mask_key: str, D: int = 6, seed: int = 3
 
 def _stub_engine(dets: dict, seen: list):
     """One engine class for both packages: yields ``dets``' rows for each
-    batch of tiles it is given; records what it was constructed with."""
+    batch of tiles it is given; records the weights and batch of each
+    call: those it was constructed with, and those the port's kept engine
+    is handed by a later call (``load_state``)."""
     class StubEngine:
         def __init__(self, params, cfg, batch_size=16, **kw):
-            seen.append({"quant": params.get("quant"), "batch": batch_size})
+            self.batch = batch_size
+            self.load_state(params)
             self.stats = {"h2d_s": 0.0, "d2h_s": 0.0}
+
+        def load_state(self, params):
+            seen.append({"quant": params.get("quant"), "batch": self.batch})
 
         def run(self, it):
             i = 0

@@ -237,6 +237,12 @@ SCRIPTS = {
     "ablate_seeded.py": "tools/ablate_seeded.py",
     "add_tile_mask.py": "pipeline/sandbox.py",
     "assess_detections.py": "pipeline/assess.py",
+    "bench_conv_dtypes.py": "tools/bench_conv_dtypes.py",
+    "bench_int8_gemm.py": "tools/bench_int8_gemm.py",
+    "bench_pooler.py": "tools/bench_pooler.py",
+    "bench_pooler_variants.py": "tools/bench_pooler_variants.py",
+    "bench_proposals.py": "tools/bench_proposals.py",
+    "bench_training.py": "tools/bench_training.py",
     "calculate_statistics.py": "pipeline/assess.py",
     "correct_gt.py": "pipeline/sandbox.py",
     "dem_zonal_stats.py": "tiles/rasters.py",
@@ -249,36 +255,43 @@ SCRIPTS = {
     "measure_detections.py": "tools/measure_detections.py",
     "prepare_data.py": "pipeline/stats_prep.py",
     "prepare_data_obj_detec.py": "pipeline/label_prep.py",
+    "profile_heads.py": "tools/profile_heads.py",
+    "profile_proposals.py": "tools/profile_proposals.py",
+    "profile_stages.py": "tools/profile_stages.py",
+    "profile_training.py": "tools/profile_training.py",
     "smoke_learning.py": "tools/learning_smoke.py",
     "statistical_analysis.py": "pipeline/stats_analysis.py",
     "tif2cog.py": "pipeline/cog_pipeline.py",
     "train_model.py": "pipeline/training.py",
 }
-# the reference's microbenchmarks, profiles and TPU checks: measurement
-# tools that wait for the port's benchmark (BENCHMARK.json), not stages a
-# user runs
-WAITING_FOR_THE_BENCHMARK = (
-    "bench_conv_dtypes.py", "bench_int8_gemm.py", "bench_pooler.py",
-    "bench_pooler_variants.py", "bench_proposals.py", "bench_training.py",
-    "check_blocked_pooler_tpu.py", "check_int8_pyramid_pooler_tpu.py",
-    "profile_heads.py", "profile_proposals.py", "profile_stages.py",
-    "profile_training.py")
+# the reference's checks of its TPU kernels on the TPU, and the cases of
+# chip_smoke.py that hold the port's kernels to the same settings on the
+# card: script -> (phase function, table of cases, the cases' names)
+TPU_CHECKS = {
+    # the blocked pooler at the parity shapes, adaptive and at s=2
+    # (--samplings 0,2), bf16 and int8 levels (phase_kernels_k2("int8"))
+    "check_blocked_pooler_tpu.py": ("phase_kernels_k2", "PPOOLERS",
+                                    ("box", "mask", "box_s2")),
+    # the fused pooler on int8 pyramid levels, P5's 8x8xC block included,
+    # at P = 7 and 14
+    "check_int8_pyramid_pooler_tpu.py": ("phase_kernels_k1_p5",
+                                         "P5_POOLERS", ("box", "mask")),
+}
 
 
 def test_every_script_of_the_reference_has_its_counterpart():
     """Each ``scripts/*.py`` of the reference maps to an entry point of the
     port (a module with ``main`` run under ``__main__``), or is one of
-    the measurement tools that wait for the port's benchmark; a script in
-    neither fails, and so does a name in either that is no script."""
+    its TPU checks, which ``chip_smoke.py``'s cases stand in for; a script
+    in neither fails, and so does a name in either that is no script."""
     import re
 
     scripts = {f for f in os.listdir(os.path.join(ROOT, "scripts"))
                if f.endswith(".py")}
-    assert scripts - set(SCRIPTS) - set(WAITING_FOR_THE_BENCHMARK) == set()
-    assert set(SCRIPTS) | set(WAITING_FOR_THE_BENCHMARK) <= scripts
-    assert not set(SCRIPTS) & set(WAITING_FOR_THE_BENCHMARK)
-    assert all(re.fullmatch(r"(bench_.*|profile_.*|check_.*_tpu)\.py", f)
-               for f in WAITING_FOR_THE_BENCHMARK)
+    assert scripts - set(SCRIPTS) - set(TPU_CHECKS) == set()
+    assert set(SCRIPTS) | set(TPU_CHECKS) <= scripts
+    assert not set(SCRIPTS) & set(TPU_CHECKS)
+    assert all(re.fullmatch(r"check_.*_tpu\.py", f) for f in TPU_CHECKS)
     for script, module in SCRIPTS.items():
         with open(os.path.join(ROOT, "roadsurf_tpu_torch", module)) as f:
             tree = ast.parse(f.read(), module)
@@ -286,6 +299,21 @@ def test_every_script_of_the_reference_has_its_counterpart():
             os.path.join(ROOT, "roadsurf_tpu_torch", module), False), script
         assert any(isinstance(n, ast.If) and "__main__" in ast.unparse(
             n.test) for n in tree.body), script
+
+
+def test_each_tpu_check_has_its_cases_on_the_card():
+    """The ``chip_smoke.py`` phase and cases each TPU check maps to
+    exist: the phase is a function of the script, and its table names
+    every case."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_rules_chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    for script, (phase, table, names) in TPU_CHECKS.items():
+        assert callable(getattr(cs, phase, None)), script
+        assert set(names) <= {case[0] for case in getattr(cs, table)}, script
 
 
 def test_the_scan_dispatch_and_the_small_names_are_the_references():
