@@ -190,18 +190,19 @@ exits non-zero:
    least 0.15 over the baseline's). K1, K3 and K5 must have run. Its
    workdir stays for the next phase.
 19. ``ablation_path``: in ``quality_path``'s workdir (the scene reused),
-   ``tools.ablate_seeded`` trains one seed (1000, 600 steps) and scores it
-   under fast-R32+int8pyr and parity800 (gates: the int8 fast profile's
-   F1 at least 0.15 over the baseline's; the parity row's F1 in [0, 1]
-   with a detection file for every dataset; the script's other variants,
-   parity800+int8pyr among them, run in ``tools.ablate_seeded`` on its
-   own); ``tools.ablate_mask_bits`` scores it with the u8 and the bits
-   mask downlink (gate: |delta F1| <= 0.02); ``tools.measure_detections``
+   ``tools.ablate_seeded`` scores seed 0 under fast-R32+int8pyr (gate: its
+   F1 at least 0.15 over the baseline's), seed 0 being ``quality_path``'s
+   checkpoint (the same recipe, ``quality_config(600)``: the seed's
+   training resumes there and takes no step, and the phase fails if it
+   wrote a checkpoint or a metrics line; the tool's own command trains
+   its seeds from scratch and scores the script's other variants,
+   parity800 and parity800+int8pyr among them); ``tools.ablate_mask_bits``
+   scores it with the u8 and the bits mask downlink (gate: |delta F1| <= 0.02); ``tools.measure_detections``
    runs make_detections over 256 copies of the training tiles at B=256
    with that checkpoint (its inputs scaled as it was trained), at scan_k
    1 (profiled), 4 and on the int8 stack
    (gates: records > 0; scan_k 4's records equal to scan_k 1's). K1 in
-   bf16 and int8, K2 in bf16, K3 and K5 must have run.
+   bf16 and int8 must have run.
 19b. ``measure_path``: each profile and microbenchmark of ``tools/``
    (the reference's ``profile_*`` and ``bench_*`` scripts) once at one
    step and a cut batch: ``profile_stages`` on the fast profile at B=64
@@ -217,6 +218,24 @@ exits non-zero:
    two calls at scan_k 4 over 8 tiles with other weights each; the second
    captures no graph (``CapturedGraph.captures``), its records are a
    fresh engine's and differ from the first call's.
+19c. ``bench_path``: ``tools/bench.py``, the port of the reference's
+   ``bench.py``, at each of its four settings at its own batch and k, two
+   timed steps each (the least at which a second input copy and replay
+   are enqueued before the first step's scalar is fetched): fast int8 (its default: ``fast_profile(
+   post_nms_topk=32)``, int8 full scope with the int8 pyramid, B=512,
+   k=16), fast bf16 (``BENCH_INT8=0``), parity int8 (``BENCH_PROFILE=
+   parity``, B=16, k=4) and parity bf16, each inside the CUDA graph of k
+   forwards that ``make_inference_scan_fn`` captures. Gates: the launches
+   over the measurement (the capture's warm-up forwards and every replay:
+   K1 in the fast cells' mode, K2 in the parity cells' and K3, twice a
+   forward each); each step's lag-1 scalar (its score sum, fetched one
+   step late) equal bit for bit to the sum from replaying that step's
+   batch alone afterwards, and finite; over that replay, the launches read
+   from the kernels' names (torch.profiler) equal to the counters'. Each
+   cell's line holds tiles/s, host seconds, event ms a step, the capture's
+   seconds and memory pool, the input copy's ms and the peak memory. Then
+   ``roadsurf_tpu_torch.entry.entry()``'s forward on its own arguments:
+   the reference's output keys and shapes, finite, K1 twice.
 20. ``cog_path``: the tif2cog device stages on a SWISSIMAGE-RS-sized
    image (10000² × 4 uint16, EPSG:2056, a nodata border): the host's
    inverse map, the gather (equal to numpy's of the same indices),
@@ -3097,14 +3116,12 @@ def phase_quality_path(wd: str) -> dict:
 # the ablations: the seeded quality variants and make_detections measured,
 # on weights trained on the card
 
-# the variants of tools/ablate_seeded.py the phase scores: the fast int8
-# stack and the 800 px parity geometry in bf16 and int8 (K1 and K2 in both
-# modes, K3)
-ABLATION_VARIANTS = ("fast-R32+int8pyr", "parity800")
+# the variant of tools/ablate_seeded.py the phase scores: the fast int8
+# stack (K1 int8)
+ABLATION_VARIANTS = ("fast-R32+int8pyr",)
 MASK_DELTA_MAX = 0.02           # |F1(bits) - F1(u8)|, paired: the same weights
 MEASURE_TILES, MEASURE_BATCH, MEASURE_SCAN_K = 256, 256, 4
-ABLATION_KERNELS = ("roi_align", "roi_align_int8", "roi_align_blocked",
-                    "nms", "roi_align_backward")
+ABLATION_KERNELS = ("roi_align", "roi_align_int8")
 
 
 def _record_keys(records: list) -> list:
@@ -3114,15 +3131,32 @@ def _record_keys(records: list) -> list:
             for r in records]
 
 
+def _training_files(root: str) -> dict:
+    """{path: (size, mtime_ns)} of every checkpoint and metrics log under
+    ``root``: what a training step writes."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            if (f.startswith("model_") and f.endswith(".npz")) \
+                    or f == "metrics.jsonl":
+                st = os.stat(os.path.join(d, f))
+                out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
 def phase_ablation_path(wd: str) -> dict:
     """ablation_path: the seeded ablations and make_detections measured,
     in ``quality_path``'s workdir ``wd`` (its scene is reused). (1)
-    ``tools.ablate_seeded.run``: one seed (1000) trained from scratch, 600
-    steps at B=8 on 256 px tiles (K1 forward, K5 backward), scored under
-    ``ABLATION_VARIANTS`` (make_detections and final_metrics); gates:
-    fast-R32+int8pyr's balanced F1 at least ``F1_OVER_BASELINE`` over the
-    baseline's, as ``quality_path`` holds the bf16 profiles; each parity
-    row's F1 in [0, 1] and a detection file for every dataset. (2)
+    ``tools.ablate_seeded.run``: one seed, ``quality_path``'s checkpoint
+    placed as seed 0's last (the same recipe, ``quality_config(600)``, 600
+    steps at B=8 on 256 px tiles; the seed's training resumes there and
+    takes no step), scored under ``ABLATION_VARIANTS`` (make_detections
+    and final_metrics); gates: the seed took no step (no checkpoint
+    written or rewritten anywhere under the workdir, every metrics log as
+    it was or new and empty: a change of the tool's log layout, which
+    would train the seed anew, fails here), and fast-R32+int8pyr's balanced F1 at least
+    ``F1_OVER_BASELINE`` over the baseline's, as ``quality_path`` holds
+    the bf16 profiles. (2)
     ``tools.ablate_mask_bits.run`` on that seed: the u8 and the bits
     downlink, paired; gate: |delta| <= ``MASK_DELTA_MAX``. (3)
     ``tools.measure_detections.run`` over 256 copies of the training tiles
@@ -3131,21 +3165,34 @@ def phase_ablation_path(wd: str) -> dict:
     fires ~12 detections over 512 tiles): scan_k 1 (profiled: the
     device's busy share), scan_k 4 (CUDA graphs) and the int8 stack;
     gates: records > 0, and the records at scan_k 4 equal to scan_k 1's.
-    K1 in bf16 and int8, K2 in bf16, K3 and K5 must each have
-    launched."""
+    K1 in bf16 and int8 must each have launched."""
     from roadsurf_tpu_torch.tools import (ablate_mask_bits, ablate_seeded,
                                           measure_detections)
 
+    import shutil
+
+    od = os.path.join(wd, "outputs", "obj_detector")
+    last = f"model_{QUALITY_ITERS - 1:07d}.npz"
+    os.makedirs(os.path.join(od, "logs_seed0"), exist_ok=True)
+    shutil.copy(os.path.join(od, "logs", last),
+                os.path.join(od, "logs_seed0", last))
+    trained = _training_files(od)
     _reset_counts()
     t0 = time.perf_counter()
     seeded = ablate_seeded.run(wd, seeds=1, iters=QUALITY_ITERS,
                                variants=list(ABLATION_VARIANTS),
                                device="cuda")
     seeded_s = time.perf_counter() - t0
+    written = {p: v for p, v in _training_files(od).items()
+               if trained.get(p) != v
+               and not (p.endswith("metrics.jsonl") and p not in trained
+                        and v[0] == 0)}
+    _require(not written,
+             f"ablation_path: the seed trained instead of resuming at "
+             f"{last}: {sorted(written)}")
     t0 = time.perf_counter()
     mask = ablate_mask_bits.run(wd, seeds=1, device="cuda")
     mask_s = time.perf_counter() - t0
-    od = os.path.join(wd, "outputs", "obj_detector")
     images, ckpt = os.path.join(od, "trn-images"), os.path.join(
         od, "logs_seed0")
     measured, recs = {}, {}
@@ -3172,13 +3219,6 @@ def phase_ablation_path(wd: str) -> dict:
              f"ablation_path: fast-R32+int8pyr's balanced F1 {fast['f1b']} "
              f"is not {F1_OVER_BASELINE} over the baseline's "
              f"{fast['baseline_f1']}")
-    for name in ABLATION_VARIANTS[1:]:
-        r = rows[name]
-        want = {f"{ds}_detections_at_0dot05_threshold.gpkg"
-                for ds in datasets}
-        _require(0.0 <= r["f1b"] <= 1.0 and want <= set(r["files"]),
-                 f"ablation_path: {name}: F1 {r['f1b']}, files "
-                 f"{r['files']}, datasets {datasets}")
     _require(mask["max_abs_delta"] <= MASK_DELTA_MAX,
              f"ablation_path: the bits downlink moved the F1 by "
              f"{mask['max_abs_delta']} > {MASK_DELTA_MAX}: {mask}")
@@ -3353,6 +3393,126 @@ def phase_measure_path() -> dict:
               "roi_align_backward", "int8_gemm"):
         _require(res["launches"][k] > 0,
                  f"measure_path: {k} never launched: {res['launches']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the reference's benchmark and its one-card entry point
+
+# bench.py's four settings (tools/bench.py at its own batch and k, at
+# BENCH_PATH_STEPS timed steps): (cell, knobs, the kernel launches of one
+# forward)
+BENCH_CELLS = (("fast_int8", {}, {"roi_align_int8": 2}),
+               ("fast_bf16", {"BENCH_INT8": "0"}, {"roi_align": 2}),
+               ("parity_int8", {"BENCH_PROFILE": "parity"},
+                {"roi_align_blocked_int8": 2, "nms": 2}),
+               ("parity_bf16", {"BENCH_PROFILE": "parity", "BENCH_INT8": "0"},
+                {"roi_align_blocked": 2, "nms": 2}))
+BENCH_PATH_STEPS = 2
+# the reference's entry(): fast_profile() (8 detections, 28x28 masks) on
+# 8 tiles, the forward's outputs and their shapes
+ENTRY_SHAPES = {"boxes": (8, 8, 4), "scores": (8, 8), "classes": (8, 8),
+                "valid": (8, 8), "mask_logits": (8, 8, 28, 28)}
+
+
+def _bench_cell(label: str, env: dict, per_forward: dict) -> dict:
+    """One setting of ``tools/bench.py`` at ``BENCH_PATH_STEPS`` steps: its
+    measurement (the warm-up call, which captures the graph, and the
+    timed lag-1 steps), with the launches counted over it; then each
+    step's batch replayed alone, the first under torch.profiler, whose
+    sums must equal the lag-1 scalars bit for bit (the first step's scalar
+    is fetched after the second step's copy and replay are enqueued, so a
+    scalar read from the graph's static outputs would be the second
+    step's) and whose kernel names must count what the counters count."""
+    from roadsurf_tpu_torch.tools import bench
+
+    b = bench.Bench(dict(env, BENCH_STEPS=str(BENCH_PATH_STEPS)))
+    try:
+        _reset_counts()
+        res = b.measure()
+        counts = _read_counts()
+        k = max(b.scan_k, 1)
+        # the capture's two eager warm-up forwards, then k forwards a
+        # replay: the warm-up call's and each step's
+        forwards = (2 + k * (1 + b.steps)) if b.scan_k > 1 else 1 + b.steps
+        want = {c: per_forward.get(c, 0) * forwards for c in counts}
+        _require(counts == want, f"bench_path {label}: launches {counts}, "
+                 f"expected {want}")
+        alone = []
+        before = _read_counts()
+        kernels, wall = _device_kernels(
+            lambda: alone.append(b.alone(b.batches[0])))
+        after = _read_counts()
+        alone += [b.alone(x) for x in b.batches[1:]]
+    finally:
+        b.close()
+    seen = _profiled_launches(kernels)
+    counted = {c: after[c] - before[c] for c in after if after[c] != before[c]}
+    pooler = next(c for c in per_forward if c != "nms")
+    _require(counted == {c: n * k for c, n in per_forward.items()}
+             and seen["pooler"] == counted[pooler]
+             and seen["nms"] == counted.get("nms", 0),
+             f"bench_path {label}: the profiler saw {seen}, the counters "
+             f"{counted}, over one replay of {k} forwards")
+    _require(alone == res["scalars"] and all(np.isfinite(alone)),
+             f"bench_path {label}: lag-1 scalars {res['scalars']}, each "
+             f"batch alone {alone}")
+    # distinct sums, or the gate above could not tell a step's scores
+    # from the next step's
+    _require(len(set(alone)) == len(alone),
+             f"bench_path {label}: the batches' sums {alone} are not "
+             f"distinct")
+    line = res.pop("line")
+    out = {"phase": "bench_path", "cell": label, **res, "line": line,
+           "alone_scalars": alone, "launches": counts,
+           "profiled_launches": seen, "profiled": _split(kernels, wall)}
+    _emit(out)
+    return out
+
+
+def _entry_check() -> dict:
+    """``roadsurf_tpu_torch.entry.entry()``'s forward on its own
+    arguments: the reference's output keys and shapes, finite, K1 twice."""
+    from roadsurf_tpu_torch.entry import entry
+
+    fn, (state, images) = entry()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn(state, images)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    finite = all(bool(torch.isfinite(out[k].float()).all())
+                 for k in ("boxes", "scores", "mask_logits"))
+    _require(shapes == ENTRY_SHAPES and finite
+             and out["valid"].dtype == torch.bool,
+             f"bench_path entry: shapes {shapes}, finite {finite}")
+    want = {c: 2 if c == "roi_align" else 0 for c in counts}
+    _require(counts == want, f"bench_path entry: launches {counts}")
+    return {"shapes": {k: list(v) for k, v in shapes.items()},
+            "valid": int(out["valid"].sum()), "seconds": seconds,
+            "launches": counts}
+
+
+def phase_bench_path() -> dict:
+    """bench_path: ``tools/bench.py``, the reference's ``bench.py``, at
+    each of its four settings, and ``entry()``'s forward (the phase's
+    docstring entry, 19c)."""
+    t0 = time.perf_counter()
+    cells = {label: _bench_cell(label, env, per_forward)
+             for label, env, per_forward in BENCH_CELLS}
+    entry = _entry_check()
+    res = {"phase": "bench_path",
+           "cells": {k: {f: v[f] for f in (
+               "tiles_per_s", "host_s", "event_ms_per_step", "capture_s",
+               "pool_bytes", "copy_ms", "peak_allocated_bytes")}
+               for k, v in cells.items()},
+           "entry": entry,
+           "launches": _sum_counts(*(c["launches"] for c in cells.values()),
+                                   entry["launches"]),
+           "seconds": time.perf_counter() - t0}
+    _emit(res)
     return res
 
 
@@ -4289,6 +4449,8 @@ def main() -> int:
     runs["scan_path"] = phase_scan_path()
     torch.cuda.empty_cache()
     runs["measure_path"] = phase_measure_path()
+    torch.cuda.empty_cache()
+    runs["bench_path"] = phase_bench_path()
     torch.cuda.empty_cache()
     runs["f32_forward"] = phase_f32_forward()
     torch.cuda.empty_cache()

@@ -79,7 +79,7 @@ def params_sha256(params) -> str:
     return h.hexdigest()
 
 
-def run_steps(case: dict, group=None, device="cpu"):
+def run_steps(case: dict, group=None, device="cuda"):
     """``case["steps"]`` training steps of a case, on this rank's share of
     its global batch. The case: ``cfg``, ``image_size``, ``batch`` (the
     global batch, numpy), ``params`` (``from_jax_train_params``'s tree)
@@ -89,7 +89,8 @@ def run_steps(case: dict, group=None, device="cpu"):
     Returns (result, train state): per step the loss dict (the global
     batch's) and, with ``count_flops``, this rank's FLOPs; the digest of
     the final parameters; with ``return_state`` the final parameters and
-    velocity as numpy trees."""
+    velocity as numpy trees. Without a group it runs on ``device``, and
+    raises without a card unless it is given ``device="cpu"``."""
     cfg, S = case["cfg"], case["image_size"]
     dev = group.device if group is not None else resolve_device(device)
     params = case.get("params")

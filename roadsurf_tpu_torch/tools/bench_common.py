@@ -9,7 +9,8 @@ habits has its counterpart on the card here:
   the device before the clock starts (there against the relay's dispatch
   cache; here so that no step reads what a cache kept of the last);
 * forced completion: one scalar is fetched a step (``.item()``), and the
-  host clock spans the steps; beside it, CUDA events around each step's
+  host clock spans the steps (``time_lag1``: fetched one step late, as
+  ``bench.py`` pipelines them); beside it, CUDA events around each step's
   work give its device span (``event_ms``, without the fetch);
 * the "noop (dispatch floor)" rows: an almost empty call plus the fetch,
   the floor every other row stands on;
@@ -34,6 +35,7 @@ import json
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from ..utils.graphs import tensor_leaves
@@ -138,6 +140,46 @@ def time_reps(fn, make_inputs, steps: int) -> dict:
     per = steps * max(n, 1)
     return {"ms": host / per * 1e3,
             "event_ms": event / per * 1e3 if event else None}
+
+
+def staged(rng, shape: tuple, n: int, dev: torch.device) -> list:
+    """``n`` arrays of random uint8 tiles of ``shape`` from ``rng``
+    (``integers(0, 255)``, the scripts' draw), each put on ``dev`` as it
+    is drawn."""
+    return [torch.from_numpy(rng.integers(0, 255, shape, dtype=np.uint8)
+                             ).to(dev) for _ in range(n)]
+
+
+def time_lag1(step, inputs: list) -> dict:
+    """``bench.py``'s timed loop, lag-1 pipelined: ``step(x)`` enqueues one
+    step and returns its scalar as a tensor of its own (enqueued right
+    after the step's work, so no later step can overwrite what it reads);
+    each scalar is fetched (``.item()``) after the next step is enqueued,
+    the last one after the loop, all inside the host clock. Returns the
+    host seconds (``host_s``), the scalars in step order and, on the card,
+    the mean event ms of a step's enqueued work (``event_ms``, without the
+    fetch)."""
+    cuda = any(t.is_cuda for t in tensor_leaves(inputs[0]))
+    spans, values = [], []
+    prev = None
+    t0 = time.perf_counter()
+    for x in inputs:
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        value = step(x)
+        if cuda:
+            end.record()
+            spans.append((start, end))
+        if prev is not None:
+            values.append(prev.item())
+        prev = value
+    values.append(prev.item())
+    host_s = time.perf_counter() - t0
+    event_ms = sum(s.elapsed_time(e) for s, e in spans) / len(spans) \
+        if spans else None
+    return {"host_s": host_s, "scalars": values, "event_ms": event_ms}
 
 
 def emit(obj: dict):

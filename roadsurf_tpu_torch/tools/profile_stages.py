@@ -48,7 +48,7 @@ from ..models.roi_heads import box_head_forward, inference_detections
 from ..utils.device import compute_dtype, resolve_device
 from ..utils.weights import from_jax_params, state_to
 from .bench_common import FLOPS_COUNTED, card, emit, \
-    flop_count, time_steps
+    flop_count, staged, time_steps
 
 STAGE_NAMES = ("preprocess", "stem", "backbone", "+fpn", "+rpn_head",
                "+proposals(topk+nms)", "+box_head(roialign+fc)",
@@ -170,10 +170,7 @@ def tile_batches(batch: int, n: int, dev: torch.device,
                  tile: int = TILE) -> list:
     """``n`` batches of random uint8 tiles from ``default_rng(0)``, on
     ``dev``."""
-    rng = np.random.default_rng(0)
-    return [torch.from_numpy(rng.integers(0, 255, (batch, tile, tile, 3),
-                                          dtype=np.uint8)).to(dev)
-            for _ in range(n)]
+    return staged(np.random.default_rng(0), (batch, tile, tile, 3), n, dev)
 
 
 def profile(fns: list, batches: list, batch: int, extra: dict) -> list:

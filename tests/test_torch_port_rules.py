@@ -316,6 +316,75 @@ def test_each_tpu_check_has_its_cases_on_the_card():
         assert set(names) <= {case[0] for case in getattr(cs, table)}, script
 
 
+# each public top-level function of a repo-root file that imports the JAX
+# package, and its counterpart in the port (module::name)
+ROOT_ENTRIES = {
+    "bench.py::main": "tools/bench.py::main",
+    "__graft_entry__.py::entry": "entry.py::entry",
+    "__graft_entry__.py::dryrun_multichip":
+        "parallel/dryrun.py::dryrun_multigpu",
+}
+
+
+def _imports_the_jax_package(path: str) -> bool:
+    """Whether a file imports ``roadsurf_tpu`` anywhere (at its top level
+    or inside a function)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        if any(n == "roadsurf_tpu" or n.startswith("roadsurf_tpu.")
+               for n in names):
+            return True
+    return False
+
+
+def test_every_entry_point_of_the_repo_root_has_its_counterpart():
+    """Each public top-level function of a ``*.py`` at the repo's root
+    that imports the JAX package (``bench.py``, ``__graft_entry__.py``)
+    maps to a function of the port (``ROOT_ENTRIES``) that exists; a new
+    root file fails until it is ported, and so does a name in the table
+    that no root file defines."""
+    found = set()
+    for f in sorted(os.listdir(ROOT)):
+        path = os.path.join(ROOT, f)
+        if not f.endswith(".py") or not _imports_the_jax_package(path):
+            continue
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        found |= {f"{f}::{n.name}" for n in tree.body
+                  if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+                  and not n.name.startswith("_")}
+    assert {"bench.py::main", "__graft_entry__.py::entry"} <= found
+    assert found == set(ROOT_ENTRIES)
+    for counterpart in ROOT_ENTRIES.values():
+        module, name = counterpart.split("::")
+        path = os.path.join(ROOT, "roadsurf_tpu_torch", module)
+        assert os.path.exists(path), counterpart
+        assert name in _top_level_names(path, True), counterpart
+
+
+def test_run_steps_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """``parallel/dryrun.py::run_steps`` without a group runs on the card
+    by default and raises without one, before it makes any weights."""
+    from roadsurf_tpu_torch.parallel import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun, "init_params", lambda *a: pytest.fail(
+        "weights made without a card"))
+    case = {"cfg": fast_profile(), "image_size": 64, "init_seed": 0,
+            "batch": dryrun.dryrun_batch(1, 64)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_steps(case)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_steps(case, None, "cuda:0")
+
+
 def test_the_scan_dispatch_and_the_small_names_are_the_references():
     """The names the counterpart test found missing before the scan
     dispatch was ported: ``crs.Transformer`` and ``utils.logging.
