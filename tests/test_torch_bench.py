@@ -51,7 +51,8 @@ import roadsurf_tpu.models.quant as j_quant
 from roadsurf_tpu_torch.tools import bench, profile_stages
 from roadsurf_tpu_torch.utils.weights import from_jax_params, from_jax_quant
 from test_torch_ablations import _narrow_port_cfg
-from test_torch_measure_stages import same_cfg, set_env
+from test_torch_measure_stages import fakes, same_cfg, \
+    set_env  # noqa: F401
 from test_torch_port_model import narrow_cfg as j_narrow_cfg, narrow_tree
 from test_torch_port_quant_forward import f32_pooling  # noqa: F401
 
@@ -75,7 +76,7 @@ def reference_bench():
     return mod
 
 
-def _record(monkeypatch, env: dict, call=None) -> dict:
+def _record(monkeypatch, fakes, env: dict, call=None) -> dict:
     """The recorders in place (see the module's docstring, 1); ``call``
     stands in for the jitted forward (default: raise ``Stop``)."""
     seen = {"draws": []}
@@ -119,12 +120,12 @@ def _record(monkeypatch, env: dict, call=None) -> dict:
 
     monkeypatch.delenv("BENCH_SCANK", raising=False)
     set_env(monkeypatch, env)
-    monkeypatch.setattr(j_models, "init_params", init_params)
-    monkeypatch.setattr(j_models, "make_inference_fn", maker("single"))
-    monkeypatch.setattr(jm, "make_inference_scan_fn", maker("scan"))
-    monkeypatch.setattr(j_quant, "prepare_quantized", prepare)
-    monkeypatch.setattr(jax, "jit", Jit)
-    monkeypatch.setattr(np.random, "default_rng", Rng)
+    fakes.set(j_models, "init_params", init_params)
+    fakes.set(j_models, "make_inference_fn", maker("single"))
+    fakes.set(jm, "make_inference_scan_fn", maker("scan"))
+    fakes.set(j_quant, "prepare_quantized", prepare)
+    fakes.set(jax, "jit", Jit)
+    fakes.set(np.random, "default_rng", Rng)
     return seen
 
 
@@ -145,8 +146,8 @@ KNOB_SETTINGS = [
 
 
 @pytest.mark.parametrize("env", KNOB_SETTINGS)
-def test_the_knobs_give_the_scripts_settings(monkeypatch, env):
-    seen = _record(monkeypatch, env)
+def test_the_knobs_give_the_scripts_settings(monkeypatch, fakes, env):
+    seen = _record(monkeypatch, fakes, env)
     with pytest.raises(Stop):
         reference_bench().main()
     got = bench.settings(env)
@@ -177,11 +178,13 @@ def test_the_knobs_give_the_scripts_settings(monkeypatch, env):
 
 @pytest.mark.parametrize("profile,dt", [("fast", 0.0123), ("fast", 3.0),
                                         ("parity", 7.77), ("other", 0.5)])
-def test_the_json_line_is_the_scripts(monkeypatch, capsys, profile, dt):
+def test_the_json_line_is_the_scripts(monkeypatch, fakes, capsys, profile,
+                                      dt):
     batch, k, steps = 3, 2, 2
-    _record(monkeypatch, {"BENCH_PROFILE": profile, "BENCH_INT8": "0",
-                          "BENCH_BATCH": str(batch), "BENCH_SCANK": str(k),
-                          "BENCH_STEPS": str(steps)},
+    _record(monkeypatch, fakes, {"BENCH_PROFILE": profile,
+                                 "BENCH_INT8": "0", "BENCH_BATCH": str(batch),
+                                 "BENCH_SCANK": str(k),
+                                 "BENCH_STEPS": str(steps)},
             call=lambda p, x: {"scores": np.ones(4, np.float32)})
     mod = reference_bench()
     clock = iter([100.0, 100.0 + dt])

@@ -18,11 +18,19 @@ same names, on the CPU.
    devices), under ``BENCH_CASES`` too; the tool's knobs (pooler, int8)
    give the script's shapes and scales.
 3. Without a card each tool raises before it times anything.
+4. Faking ``jax.jit`` for a script leaves the reference's Pallas poolers
+   real: in a fresh process, ``bench_pooler``'s ``main`` under
+   ``FakeJit`` (which imports ``roadsurf_tpu.ops.roi_align_pallas``), then
+   K1's interpreted TPU kernel against its plain version.
 """
 
 from __future__ import annotations
 
+import os
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -31,16 +39,18 @@ import jax
 
 from roadsurf_tpu_torch.tools import bench_conv_dtypes, bench_int8_gemm, \
     bench_pooler, bench_pooler_variants
-from test_torch_measure_stages import FakeJit, script, set_env
+from test_torch_measure_stages import FakeJit, fakes, script, \
+    set_env  # noqa: F401
 
 torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("env", [{}, {"BENCH_CASES": "R=8"},
                                  {"BENCH_PALLAS": "0", "BENCH_CASES": "ic=16"}])
-def test_bench_pooler_cases_are_the_scripts(monkeypatch, capsys, env):
+def test_bench_pooler_cases_are_the_scripts(monkeypatch, fakes, capsys,
+                                           env):
     set_env(monkeypatch, dict(env, BENCH_BATCH="1", BENCH_STEPS="1"))
-    monkeypatch.setattr(jax, "jit", FakeJit)
+    fakes.set(jax, "jit", FakeJit)
     script("bench_pooler").main()
     want = [ln[:28].strip() for ln in capsys.readouterr().out.splitlines()
             if ln.strip()]
@@ -50,9 +60,9 @@ def test_bench_pooler_cases_are_the_scripts(monkeypatch, capsys, env):
     assert got == want and want
 
 
-def test_bench_int8_gemm_shapes_are_the_scripts(monkeypatch, capsys):
+def test_bench_int8_gemm_shapes_are_the_scripts(monkeypatch, fakes, capsys):
     set_env(monkeypatch, {"BENCH_KREP": "1", "BENCH_STEPS": "1"})
-    monkeypatch.setattr(jax, "jit", FakeJit)
+    fakes.set(jax, "jit", FakeJit)
     script("bench_int8_gemm").main()
     out = capsys.readouterr().out
     shapes = re.findall(r"^(.+?)  M=(\d+) K=(\d+) N=(\d+)", out, re.M)
@@ -63,9 +73,10 @@ def test_bench_int8_gemm_shapes_are_the_scripts(monkeypatch, capsys):
         * len(shapes)
 
 
-def test_bench_conv_dtypes_shapes_are_the_scripts(monkeypatch, capsys):
+def test_bench_conv_dtypes_shapes_are_the_scripts(monkeypatch, fakes,
+                                                  capsys):
     set_env(monkeypatch, {"BENCH_KREP": "1", "BENCH_STEPS": "1"})
-    monkeypatch.setattr(jax, "jit", FakeJit)
+    fakes.set(jax, "jit", FakeJit)
     script("bench_conv_dtypes").main()
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln]
     shapes = bench_conv_dtypes.shapes()
@@ -132,11 +143,11 @@ def test_the_pooler_rows_agree():
 @pytest.mark.parametrize("env", [{}, {"BENCH_POOLER": "mask",
                                       "BENCH_INT8": "1"},
                                  {"BENCH_CASES": "full"}])
-def test_bench_pooler_variants_rows_are_the_scripts(monkeypatch, capsys,
-                                                    env):
+def test_bench_pooler_variants_rows_are_the_scripts(monkeypatch, fakes,
+                                                    capsys, env):
     # a batch every image grouping of the script divides
     set_env(monkeypatch, dict(env, BENCH_BATCH="32", BENCH_STEPS="1"))
-    monkeypatch.setattr(jax, "jit", FakeJit)
+    fakes.set(jax, "jit", FakeJit)
     script("bench_pooler_variants").main()
     want = [re.split(r"\s+(?:FAILED|[\d.]+ ms/batch)", ln)[0].strip()
             for ln in capsys.readouterr().out.splitlines() if ln.strip()]
@@ -166,3 +177,40 @@ def test_the_microbenchmarks_raise_without_a_card():
                 bench_pooler_variants):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.run(env={})
+
+
+GUARD = """
+import sys
+import jax
+import numpy as np
+import pytest
+from test_torch_measure_stages import FakeJit, Fakes, script, set_env
+from test_torch_port_int8_poolers import k1_int8_case, \\
+    k1_int8_plain_and_interpreted
+
+POOLERS = "roadsurf_tpu.ops.roi_align_pallas"
+assert POOLERS not in sys.modules, "the poolers are imported already"
+monkeypatch = pytest.MonkeyPatch()
+fakes = Fakes(monkeypatch)
+set_env(monkeypatch, {"BENCH_BATCH": "1", "BENCH_STEPS": "1",
+                      "BENCH_CASES": "R=8"})
+fakes.set(jax, "jit", FakeJit)
+script("bench_pooler").main()
+fakes.undo()
+from roadsurf_tpu.ops.roi_align_pallas import roi_align_fused
+assert not isinstance(roi_align_fused, FakeJit), roi_align_fused
+got, ref = k1_int8_plain_and_interpreted(*k1_int8_case())
+assert ref.shape == (2, 8, 7, 7, 8), ref.shape
+np.testing.assert_allclose(got.numpy(), ref, atol=2e-2)
+"""
+
+
+def test_a_faked_jit_leaves_the_pallas_poolers_real():
+    tests = Path(__file__).resolve().parent
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(tests), str(tests.parent),
+                                           os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-c", GUARD], cwd=tests.parent,
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert res.returncode == 0, res.stderr[-4000:]

@@ -51,8 +51,8 @@ from roadsurf_tpu.ops.roi_align import roi_align_multilevel as j_pool
 from roadsurf_tpu_torch.tools import bench_proposals, profile_heads, \
     profile_proposals
 from roadsurf_tpu_torch.utils.weights import from_jax_params, from_jax_quant
-from test_torch_measure_stages import FakeJit, same_cfg, script, set_env, \
-    table_rows
+from test_torch_measure_stages import FakeJit, fakes, same_cfg, script, \
+    set_env, table_rows  # noqa: F401
 from test_torch_port_model import narrow_cfg as j_narrow_cfg, narrow_tree
 from test_torch_port_quant_forward import f32_pooling  # noqa: F401
 
@@ -64,9 +64,9 @@ B = 2
 # ---------------------------------------------------------------------------
 # 1. rows
 
-def test_profile_proposals_rows_are_the_scripts(monkeypatch, capsys):
+def test_profile_proposals_rows_are_the_scripts(monkeypatch, fakes, capsys):
     set_env(monkeypatch, {"BENCH_BATCH": "1", "BENCH_STEPS": "1"})
-    monkeypatch.setattr(jax, "jit", FakeJit)
+    fakes.set(jax, "jit", FakeJit)
     script("profile_proposals").main()
     out = capsys.readouterr()
     assert table_rows(out.out, "sub-stage") \
@@ -76,9 +76,9 @@ def test_profile_proposals_rows_are_the_scripts(monkeypatch, capsys):
     assert profile_proposals.level_sizes(cfg) == levels
 
 
-def test_bench_proposals_rows_are_the_scripts(monkeypatch, capsys):
+def test_bench_proposals_rows_are_the_scripts(monkeypatch, fakes, capsys):
     set_env(monkeypatch, {"BENCH_BATCH": "1", "BENCH_STEPS": "1"})
-    monkeypatch.setattr(jax, "jit", FakeJit)
+    fakes.set(jax, "jit", FakeJit)
     script("bench_proposals").main()
     out = capsys.readouterr().out
     levels = eval(re.search(r"levels (\[[^\]]*\])", out).group(1))
@@ -88,7 +88,8 @@ def test_bench_proposals_rows_are_the_scripts(monkeypatch, capsys):
     assert bench_proposals.level_sizes(cfg) == levels
 
 
-def test_profile_heads_rows_and_config_are_the_scripts(monkeypatch, capsys):
+def test_profile_heads_rows_and_config_are_the_scripts(monkeypatch, fakes,
+                                                      capsys):
     seen = {}
 
     def init_params(key, cfg):
@@ -101,9 +102,9 @@ def test_profile_heads_rows_and_config_are_the_scripts(monkeypatch, capsys):
 
     set_env(monkeypatch, {"BENCH_BATCH": "1", "BENCH_STEPS": "1",
                           "BENCH_TOPK": "16"})
-    monkeypatch.setattr(j_models, "init_params", init_params)
-    monkeypatch.setattr(j_quant, "prepare_quantized", prepare)
-    monkeypatch.setattr(jax, "jit", FakeJit)
+    fakes.set(j_models, "init_params", init_params)
+    fakes.set(j_quant, "prepare_quantized", prepare)
+    fakes.set(jax, "jit", FakeJit)
     script("profile_heads").main()
     out = capsys.readouterr()
     got = profile_heads.settings({"BENCH_TOPK": "16"})["cfg"]

@@ -27,8 +27,14 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
+import importlib
 import importlib.util
+import pkgutil
 import re
+import sys
+import weakref
 from dataclasses import replace
 from pathlib import Path
 
@@ -110,6 +116,89 @@ class FakeJit:
         return np.float32(0.0)
 
 
+PACKAGES = ("roadsurf_tpu", "roadsurf_tpu_torch")
+
+
+@functools.cache
+def import_every_module():
+    """Imports every module of both packages, once a process."""
+    for name in PACKAGES:
+        pkg = importlib.import_module(name)
+        for info in pkgutil.walk_packages(pkg.__path__, name + "."):
+            importlib.import_module(info.name)
+
+
+class Fakes:
+    """The one way these tests fake a global of JAX or numpy, or a
+    function of the reference (``set``), through a ``pytest.MonkeyPatch``.
+
+    A module imported while a fake is in place binds it for good: the
+    ``functools.partial(jax.jit, ...)`` decorators of
+    ``roadsurf_tpu/ops/roi_align_pallas.py``, imported by a script's
+    ``main`` under ``FakeJit``, left every later pooler call of the
+    process returning 0.0. So before the first fake, every module of both
+    packages is imported with the real globals. ``undo`` takes the fakes
+    back and then fails if a module of either package, or one imported
+    while the fakes were in place, still holds a fake, an object made by
+    a fake class or a ``functools.partial`` of either, or if anything else
+    (a cache of jitted functions) keeps an object made by a fake class.
+    """
+
+    def __init__(self, monkeypatch):
+        self.monkeypatch = monkeypatch
+        self.fakes, self.classes, self.made = [], [], []
+        self.modules_before = None
+
+    def set(self, target, name, value):
+        if self.modules_before is None:
+            import_every_module()
+            self.modules_before = set(sys.modules)
+        if isinstance(value, type):
+            cls, made = value, self.made
+
+            def value(*a, **kw):
+                obj = cls(*a, **kw)
+                made.append(weakref.ref(obj))
+                return obj
+
+            self.classes.append(cls)
+        self.fakes.append(value)
+        self.monkeypatch.setattr(target, name, value)
+
+    def _is_fake(self, v) -> bool:
+        if isinstance(v, functools.partial):
+            v = v.func
+        return any(v is f for f in self.fakes + self.classes) \
+            or isinstance(v, tuple(self.classes))
+
+    def undo(self):
+        self.monkeypatch.undo()
+        if self.modules_before is None:
+            return
+        bound = [f"{name}.{attr}" for name, mod in list(sys.modules.items())
+                 if name.split(".")[0] in PACKAGES
+                 or name not in self.modules_before
+                 for attr, v in list(getattr(mod, "__dict__", {}).items())
+                 if self._is_fake(v)]
+        assert not bound, f"fakes still bound after undo: {bound}"
+        # a failed test's traceback (sys.last_value) keeps its frames
+        if any(r() is not None for r in self.made) \
+                and getattr(sys, "last_value", None) is None:
+            gc.collect()
+            kept = [type(obj).__name__ for obj in (r() for r in self.made)
+                    if obj is not None]
+            assert not kept, f"objects of fake classes still held: {kept}"
+
+
+@pytest.fixture
+def fakes(monkeypatch):
+    """``Fakes`` on the test's ``monkeypatch``, undone and checked at
+    teardown."""
+    f = Fakes(monkeypatch)
+    yield f
+    f.undo()
+
+
 def table_rows(out: str, head: str) -> list:
     """The first column of the table printed after the line ``head``
     starts with."""
@@ -132,7 +221,7 @@ KNOB_SETTINGS = [
 ]
 
 
-def _reference_settings(monkeypatch, capsys, env: dict) -> dict:
+def _reference_settings(monkeypatch, fakes, capsys, env: dict) -> dict:
     """The script's config, batch, steps and calibration, its ``main``
     stopped at its first device_put."""
     seen = {}
@@ -149,9 +238,9 @@ def _reference_settings(monkeypatch, capsys, env: dict) -> dict:
         raise Stop
 
     set_env(monkeypatch, env)
-    monkeypatch.setattr(j_models, "init_params", init_params)
-    monkeypatch.setattr(j_quant, "prepare_quantized", prepare)
-    monkeypatch.setattr(jax, "device_put", device_put)
+    fakes.set(j_models, "init_params", init_params)
+    fakes.set(j_quant, "prepare_quantized", prepare)
+    fakes.set(jax, "device_put", device_put)
     with pytest.raises(Stop):
         script("profile_stages").main()
     err = capsys.readouterr().err
@@ -161,8 +250,9 @@ def _reference_settings(monkeypatch, capsys, env: dict) -> dict:
 
 
 @pytest.mark.parametrize("env", KNOB_SETTINGS)
-def test_the_knobs_give_the_scripts_config(monkeypatch, capsys, env):
-    want = _reference_settings(monkeypatch, capsys, env)
+def test_the_knobs_give_the_scripts_config(monkeypatch, fakes, capsys,
+                                           env):
+    want = _reference_settings(monkeypatch, fakes, capsys, env)
     got = profile_stages.settings(env)
     same_cfg(got["cfg"], want["cfg"])
     assert (got["batch"], got["steps"]) == (want["batch"], want["steps"])
@@ -177,11 +267,11 @@ def test_the_knobs_give_the_scripts_config(monkeypatch, capsys, env):
 
 @pytest.mark.parametrize("sel", ["", "backbone,+fpn",
                                  "+mask_head=FULL,stem,no-such-stage"])
-def test_the_rows_are_the_scripts(monkeypatch, capsys, sel):
+def test_the_rows_are_the_scripts(monkeypatch, fakes, capsys, sel):
     set_env(monkeypatch, {"BENCH_BATCH": "1", "BENCH_STEPS": "1",
                           "BENCH_STAGES": sel})
-    monkeypatch.setattr(j_models, "init_params", lambda key, cfg: {})
-    monkeypatch.setattr(jax, "jit", FakeJit)
+    fakes.set(j_models, "init_params", lambda key, cfg: {})
+    fakes.set(jax, "jit", FakeJit)
     script("profile_stages").main()
     want = table_rows(capsys.readouterr().out, "stage ")
     got = profile_stages.selected(profile_stages.STAGE_NAMES, sel)

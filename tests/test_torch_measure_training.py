@@ -35,8 +35,8 @@ import jax
 import roadsurf_tpu.engine.train as j_train
 from roadsurf_tpu_torch.tools import bench_training, profile_training
 from roadsurf_tpu_torch.utils.weights import from_jax_train_params
-from test_torch_measure_stages import FakeJit, same_cfg, script, set_env, \
-    table_rows
+from test_torch_measure_stages import FakeJit, fakes, same_cfg, script, \
+    set_env, table_rows  # noqa: F401
 from test_torch_port_model import narrow_tree
 from test_torch_train_step import jax_draws
 
@@ -118,22 +118,21 @@ class _CostJit(FakeJit):
         return state, {"total": 0.5}
 
 
-def _script_keys(monkeypatch, capsys, scan_k: int) -> list:
+def _script_keys(fakes, capsys, scan_k: int) -> list:
     import json
 
     mod = script("bench_training")
-    monkeypatch.setattr(j_train, "init_train_state", lambda key, cfg: {})
-    monkeypatch.setattr(j_train, "make_train_step", lambda cfg, s: None)
-    monkeypatch.setattr(j_train, "make_train_scan_step",
-                        lambda cfg, s, k: None)
-    monkeypatch.setattr(jax, "jit", _CostJit)
+    fakes.set(j_train, "init_train_state", lambda key, cfg: {})
+    fakes.set(j_train, "make_train_step", lambda cfg, s: None)
+    fakes.set(j_train, "make_train_scan_step", lambda cfg, s, k: None)
+    fakes.set(jax, "jit", _CostJit)
     mod.bench_one(None, 32, 1, 1, "32px", scan_k=scan_k)
     return list(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
 
 
 @pytest.mark.parametrize("scan_k", [1, 2])
-def test_one_bench_training_step_on_the_cpu(monkeypatch, capsys, scan_k):
-    want = _script_keys(monkeypatch, capsys, scan_k)
+def test_one_bench_training_step_on_the_cpu(fakes, capsys, scan_k):
+    want = _script_keys(fakes, capsys, scan_k)
     assert want == list(bench_training.KEYS)
     cfg = replace(bench_training.settings({})["runs"][0][0], **NARROW)
     line = bench_training.bench_one(cfg, 64, 2, 1, "64px", scan_k=scan_k,
@@ -153,7 +152,7 @@ def test_one_bench_training_step_on_the_cpu(monkeypatch, capsys, scan_k):
 @pytest.mark.parametrize("env", [{}, {"BENCH_CHUNKS": "2",
                                       "BENCH_REMAT": "1"}])
 def test_profile_training_config_and_rows_are_the_scripts(
-        monkeypatch, capsys, env):
+        monkeypatch, fakes, capsys, env):
     seen = {}
 
     def init(key, cfg):
@@ -161,9 +160,9 @@ def test_profile_training_config_and_rows_are_the_scripts(
         return {"params": {}}
 
     set_env(monkeypatch, dict(env, BENCH_BATCH="1", BENCH_STEPS="1"))
-    monkeypatch.setattr(j_train, "init_train_state", init)
-    monkeypatch.setattr(jax, "jit", FakeJit)
-    monkeypatch.setattr(jax, "block_until_ready", lambda x: x)
+    fakes.set(j_train, "init_train_state", init)
+    fakes.set(jax, "jit", FakeJit)
+    fakes.set(jax, "block_until_ready", lambda x: x)
     script("profile_training").main()
     same_cfg(profile_training.settings(env)["cfg"], seen["cfg"])
     rows = table_rows(capsys.readouterr().out, "branch")

@@ -42,6 +42,39 @@ def _boxes(rng, B, R, S):
                     -1).astype(np.float32)
 
 
+def k1_int8_case():
+    """The inputs of the reference's own int8 case of K1
+    (tests/test_model.py:202-241): int8 levels, boxes, scales."""
+    rng = np.random.default_rng(5)
+    B, R, C, S = 2, 8, 8, 64
+    scales = np.asarray([0.11, 0.23, 0.47], np.float32)
+    feats = [rng.normal(size=(B, S // st, S // st, C)) for st in (4, 8, 16)]
+    q = [np.clip(np.round(np.asarray(jnp.asarray(f, jnp.bfloat16)
+                                     .astype(jnp.float32)) / s), -127, 127)
+         .astype(np.int8) for f, s in zip(feats, scales)]
+    x0, y0 = rng.uniform(0, 50, (2, B, R))
+    w, h = rng.uniform(4, 40, (2, B, R))
+    boxes = np.stack([x0, y0, np.minimum(x0 + w, S), np.minimum(y0 + h, S)],
+                     -1).astype(np.float32)
+    return q, boxes, scales
+
+
+def k1_int8_plain_and_interpreted(q, boxes, scales):
+    """K1's plain version, and roi_align_fused(interpret=True,
+    feat_scales=...) as numpy."""
+    from roadsurf_tpu.ops.roi_align_pallas import roi_align_fused
+    lvl = torch.from_numpy(np.array(j_level(jnp.asarray(boxes), 224, 4, 2,
+                                            4))).int()
+    got = roi_align_fused_ref(tuple(torch.from_numpy(f) for f in q),
+                              torch.from_numpy(boxes), lvl, 7, 2,
+                              feat_scales=torch.from_numpy(scales))
+    ref = np.asarray(roi_align_fused(tuple(jnp.asarray(f) for f in q),
+                                     jnp.asarray(boxes), 7, interpret=True,
+                                     feat_scales=jnp.asarray(scales)),
+                     np.float32)
+    return got, ref
+
+
 @pytest.mark.parametrize("S,sampling", [(256, 2), (256, 0), (704, 2)])
 def test_int8_pooler_plain_matches_jax_xla_path(S, sampling):
     """K1's (256 px, s=2) and K2's (256 px adaptive; 704 px, where P2 is
@@ -74,27 +107,8 @@ def test_k1_int8_plain_matches_tpu_kernel_interpreted():
     feat_scales=...), which folds the scale into its bf16 weights, on the
     inputs of the reference's own int8 case (tests/test_model.py:202-241,
     atol 2e-2)."""
-    from roadsurf_tpu.ops.roi_align_pallas import roi_align_fused
-    rng = np.random.default_rng(5)
-    B, R, C, S = 2, 8, 8, 64
-    scales = np.asarray([0.11, 0.23, 0.47], np.float32)
-    feats = [rng.normal(size=(B, S // st, S // st, C)) for st in (4, 8, 16)]
-    q = [np.clip(np.round(np.asarray(jnp.asarray(f, jnp.bfloat16)
-                                     .astype(jnp.float32)) / s), -127, 127)
-         .astype(np.int8) for f, s in zip(feats, scales)]
-    x0, y0 = rng.uniform(0, 50, (2, B, R))
-    w, h = rng.uniform(4, 40, (2, B, R))
-    boxes = np.stack([x0, y0, np.minimum(x0 + w, S), np.minimum(y0 + h, S)],
-                     -1).astype(np.float32)
-    lvl = torch.from_numpy(np.asarray(j_level(jnp.asarray(boxes), 224, 4, 2,
-                                              4))).int()
-    got = roi_align_fused_ref(tuple(torch.from_numpy(f) for f in q),
-                              torch.from_numpy(boxes), lvl, 7, 2,
-                              feat_scales=torch.from_numpy(scales))
-    ref = np.asarray(roi_align_fused(tuple(jnp.asarray(f) for f in q),
-                                     jnp.asarray(boxes), 7, interpret=True,
-                                     feat_scales=jnp.asarray(scales)),
-                     np.float32)
+    q, boxes, scales = k1_int8_case()
+    got, ref = k1_int8_plain_and_interpreted(q, boxes, scales)
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-2)
 
 
@@ -109,8 +123,8 @@ def test_k2_int8_plain_matches_tpu_kernel_interpreted(sampling):
     scales = np.asarray([0.05, 0.08, 0.11, 0.07], np.float32)
     q = _int8_levels(rng, [88, 44, 22, 11], 16, scales, B=1)
     boxes = _boxes(rng, 1, 6, 352)
-    lvl = torch.from_numpy(np.asarray(j_level(jnp.asarray(boxes), 224, 4, 2,
-                                              5))).int()
+    lvl = torch.from_numpy(np.array(j_level(jnp.asarray(boxes), 224, 4, 2,
+                                            5))).int()
     got = roi_align_fused_blocked_ref(tuple(torch.from_numpy(f) for f in q),
                                       torch.from_numpy(boxes), lvl, 7,
                                       sampling,

@@ -56,7 +56,7 @@ def _no_tf32():
 
 def _nchw(a: np.ndarray) -> torch.Tensor:
     """NHWC numpy -> the port's NCHW channels_last tensor."""
-    return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)
+    return torch.from_numpy(np.array(a)).permute(0, 3, 1, 2)
 
 
 def _nhwc(t: torch.Tensor) -> np.ndarray:
@@ -328,7 +328,7 @@ def test_resnet_forward_int8_exact(stem, pyramid, fast):
     tqb = from_jax_quant({"backbone": qb})["backbone"]
     got = tq.resnet_forward_int8(
         tqb, x_t, out_sas=None if res_sa is None else torch.from_numpy(
-            np.asarray(res_sa)))
+            np.array(res_sa)))
     for n in ("res2", "res3", "res4", "res5"):
         assert got[n].dtype == (torch.int8 if pyramid else torch.bfloat16)
         np.testing.assert_array_equal(_nhwc(got[n]), _f(ref[n]), err_msg=n)
