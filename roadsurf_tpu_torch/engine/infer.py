@@ -32,9 +32,13 @@ its scan-k dispatch included:
   one replay into a static packed (k, shard, bytes) output and one
   device-to-host copy a shard. A failed capture raises. ``scan_k=1`` is
   the eager loop above;
-* ``stats`` keeps the host's waits: ``h2d_s`` (staging + issuing the
-  upload) and ``d2h_s`` (waiting for a batch's result), beside
-  ``tiles_seen`` and ``elapsed``;
+* ``stats`` keeps the host's seconds in each step: ``h2d_s`` (staging +
+  issuing the upload), ``d2h_s`` (waiting for a batch's result) and
+  ``unpack_s`` (copying it out of the pinned buffer into the caller's
+  arrays), beside ``tiles_seen``. The steps are also spans
+  (``utils.profiling.span``: ``engine.stage``, ``engine.dispatch``,
+  ``engine.drain``, ``engine.unpack``), which a profiler's trace shows
+  beside the forward's stages and the device's work;
 * :meth:`~TileInferenceEngine.load_state` gives a built engine new
   weights of the same layout, so that a caller keeps one engine, its
   pinned buffers and its captured graphs across calls (the reference's
@@ -50,6 +54,7 @@ decode of ``pipeline/detections.py``, in a thread ahead of the engine.
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import queue as _queue
 import threading
@@ -62,6 +67,7 @@ from ..models.config import ModelConfig
 from ..models.mask_rcnn import capture_scan, check_config, forward_prepared
 from ..utils.device import compute_dtype, resolve_device
 from ..utils.graphs import tensor_leaves
+from ..utils.profiling import span
 from ..utils.weights import state_to
 
 logger = logging.getLogger(__name__)
@@ -207,8 +213,18 @@ class TileInferenceEngine:
         self._out_bufs: list = [None] * self._slots
         self._n_dispatched = 0
         self.tiles_seen = 0
-        self.elapsed = 0.0
-        self.stats = {"h2d_s": 0.0, "d2h_s": 0.0}
+        self.stats = {"h2d_s": 0.0, "d2h_s": 0.0, "unpack_s": 0.0}
+
+    @contextlib.contextmanager
+    def _timed(self, name: str, key: str):
+        """Span ``name`` around the block, whose host seconds add to
+        ``stats[key]``."""
+        with span(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.stats[key] += time.perf_counter() - t0
 
     def load_state(self, state: dict):
         """Run the next batches on ``state``'s weights. A replica with a
@@ -236,20 +252,18 @@ class TileInferenceEngine:
         """Host images -> device tensor (on CUDA: a pinned staging buffer
         and an async copy on the current stream, the replica's side
         stream)."""
-        t0 = time.perf_counter()
-        if not self.cuda:
-            x = torch.from_numpy(images)
-        else:
+        with self._timed("engine.stage", "h2d_s"):
+            if not self.cuda:
+                return torch.from_numpy(images)
             buf = rep.in_bufs[slot]
             if buf is None or buf.shape != images.shape:
                 buf = torch.empty(images.shape, dtype=torch.uint8,
                                   pin_memory=True)
                 rep.in_bufs[slot] = buf
             buf.numpy()[...] = images
-            x = buf.to(rep.device, non_blocking=True)
-        self.stats["h2d_s"] += time.perf_counter() - t0
-        return x
+            return buf.to(rep.device, non_blocking=True)
 
+    @span("engine.dispatch")
     def _dispatch(self, images: np.ndarray, n: int):
         slot = self._n_dispatched % self._slots
         self._n_dispatched += 1
@@ -290,12 +304,12 @@ class TileInferenceEngine:
 
     def _drain(self, item) -> dict:
         buf, meta, n, done = item
-        t0 = time.perf_counter()
-        for ev in done:
-            ev.synchronize()
-        self.stats["d2h_s"] += time.perf_counter() - t0
+        with self._timed("engine.drain", "d2h_s"):
+            for ev in done:
+                ev.synchronize()
         self.tiles_seen += n
-        return _unpack(buf, meta, n)
+        with self._timed("engine.unpack", "unpack_s"):
+            return _unpack(buf, meta, n)
 
     def _padded(self, images) -> tuple[np.ndarray, int]:
         images = np.asarray(images, np.uint8)
@@ -312,20 +326,20 @@ class TileInferenceEngine:
     def _stage_group(self, slot: int, i: int, images: np.ndarray):
         """Batch i of the group in ``slot``: each replica's rows into its
         (k, shard, H, W, 3) host buffer, pinned on CUDA."""
-        t0 = time.perf_counter()
         b = self.shard
         shape = (self.scan_k, b) + images.shape[1:]
-        for r, rep in enumerate(self.replicas):
-            buf = rep.in_bufs[slot]
-            if buf is None or buf.shape != shape:
-                if i:
-                    raise ValueError(f"tiles of {images.shape[1:]} in a "
-                                     f"group of {tuple(buf.shape[2:])}")
-                buf = torch.empty(shape, dtype=torch.uint8,
-                                  pin_memory=self.cuda)
-                rep.in_bufs[slot] = buf
-            buf.numpy()[i] = images[r * b:(r + 1) * b]
-        self.stats["h2d_s"] += time.perf_counter() - t0
+        with self._timed("engine.stage", "h2d_s"):
+            for r, rep in enumerate(self.replicas):
+                buf = rep.in_bufs[slot]
+                if buf is None or buf.shape != shape:
+                    if i:
+                        raise ValueError(f"tiles of {images.shape[1:]} in "
+                                         f"a group of "
+                                         f"{tuple(buf.shape[2:])}")
+                    buf = torch.empty(shape, dtype=torch.uint8,
+                                      pin_memory=self.cuda)
+                    rep.in_bufs[slot] = buf
+                buf.numpy()[i] = images[r * b:(r + 1) * b]
 
     def _scan_graph(self, rep: _Replica, shape: tuple):
         """The replica's graph of ``scan_k`` packed forwards at ``shape``,
@@ -348,6 +362,7 @@ class TileInferenceEngine:
             rep.graph.meta = meta
         return rep.graph
 
+    @span("engine.dispatch")
     def _dispatch_group(self, slot: int, ns: list):
         """Run the group staged in ``slot``; -> (host (replicas, k, shard,
         bytes) buffer, meta, ns, events)."""
@@ -368,9 +383,8 @@ class TileInferenceEngine:
                     torch.cuda.stream(rep.stream):
                 staged = rep.in_bufs[slot]
                 graph = self._scan_graph(rep, tuple(staged.shape))
-                t0 = time.perf_counter()
-                graph.static_in.copy_(staged, non_blocking=True)
-                self.stats["h2d_s"] += time.perf_counter() - t0
+                with self._timed("engine.stage", "h2d_s"):
+                    graph.static_in.copy_(staged, non_blocking=True)
                 graph.replay()
                 out = graph.outputs["packed"]           # (k, shard, bytes)
                 shape = (len(self.replicas),) + tuple(out.shape)
@@ -387,20 +401,19 @@ class TileInferenceEngine:
 
     def _drain_group(self, item) -> list:
         buf, meta, ns, done = item
-        t0 = time.perf_counter()
-        for ev in done:
-            ev.synchronize()
-        self.stats["d2h_s"] += time.perf_counter() - t0
+        with self._timed("engine.drain", "d2h_s"):
+            for ev in done:
+                ev.synchronize()
         out = []
-        for i, n in enumerate(ns):
-            if n:                       # the tail group's empty batches go
-                self.tiles_seen += n
-                out.append(_unpack(np.concatenate(buf[:, i]), meta, n))
+        with self._timed("engine.unpack", "unpack_s"):
+            for i, n in enumerate(ns):
+                if n:                   # the tail group's empty batches go
+                    self.tiles_seen += n
+                    out.append(_unpack(np.concatenate(buf[:, i]), meta, n))
         return out
 
     def _run_groups(self, image_iter):
         queue = collections.deque()
-        t0 = time.perf_counter()
         ns: list = []
         for images in image_iter:
             images, n = self._padded(images)
@@ -425,7 +438,6 @@ class TileInferenceEngine:
             queue.append(self._dispatch_group(slot, ns))
         while queue:
             yield from self._drain_group(queue.popleft())
-        self.elapsed += time.perf_counter() - t0
 
     def run(self, image_iter):
         """Consume an iterator of (B', H, W, 3) uint8 arrays (B' ≤ batch
@@ -435,7 +447,6 @@ class TileInferenceEngine:
             yield from self._run_groups(image_iter)
             return
         queue = collections.deque()
-        t0 = time.perf_counter()
         for images in image_iter:
             images, n = self._padded(images)
             queue.append(self._dispatch(images, n))
@@ -443,4 +454,3 @@ class TileInferenceEngine:
                 yield self._drain(queue.popleft())
         while queue:
             yield self._drain(queue.popleft())
-        self.elapsed += time.perf_counter() - t0

@@ -23,6 +23,7 @@ import torch
 
 from ..utils.device import compute_dtype, device_constant, resolve_device
 from ..utils.graphs import CapturedGraph, storage_key, tensor_leaves
+from ..utils.profiling import span
 from ..utils.weights import state_to
 from .anchors import anchors_on
 from .config import ModelConfig
@@ -104,14 +105,16 @@ def _quant_tree(state: dict, cfg: ModelConfig) -> dict:
 def _backbone_fpn(state, q, x, dtype) -> list:
     """ResNet-50 and FPN on NCHW (channels_last) input, each int8 where
     ``q`` has its group: the P-levels, NCHW channels_last."""
-    if "backbone" in q:
-        feats = resnet_forward_int8(q["backbone"], x)
-    else:
-        feats = resnet_forward(state["backbone"], x)
-    if "fpn" in q:
-        return fpn_forward_int8(q["fpn"], feats, dtype)
-    return fpn_forward(state["fpn"], {k: v.to(dtype)
-                                      for k, v in feats.items()})
+    with span("forward.backbone"):
+        if "backbone" in q:
+            feats = resnet_forward_int8(q["backbone"], x)
+        else:
+            feats = resnet_forward(state["backbone"], x)
+    with span("forward.fpn"):
+        if "fpn" in q:
+            return fpn_forward_int8(q["fpn"], feats, dtype)
+        return fpn_forward(state["fpn"], {k: v.to(dtype)
+                                          for k, v in feats.items()})
 
 
 def forward_features(state: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -155,9 +158,12 @@ def pyramid_levels(state, q, x, cfg, dtype):
     if pyr is not None:
         # int8 pyramid: stage outputs, FPN and P-levels stay int8; the RPN
         # head and the poolers read the levels in their scales
-        res = resnet_forward_int8(q["backbone"], x, out_sas=pyr["res_sa"])
-        return fpn_forward_int8_pyr(q["fpn"], pyr, res, dtype), \
-            pyr["out_sa"]
+        with span("forward.backbone"):
+            res = resnet_forward_int8(q["backbone"], x,
+                                      out_sas=pyr["res_sa"])
+        with span("forward.fpn"):
+            return fpn_forward_int8_pyr(q["fpn"], pyr, res, dtype), \
+                pyr["out_sa"]
     return _backbone_fpn(state, q, x, dtype), None
 
 
@@ -209,43 +215,52 @@ def class_masks(state, q, box_feats, dets: dict, cfg: ModelConfig,
 def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
              with_masks: bool, mask_format: str) -> dict:
     """The forward on prepared weights (``state_to``) and images already on
-    their device."""
+    their device. Its stages are spans (``utils.profiling.span``), in this
+    order, each ATen op in one: ``forward.preprocess``, ``.backbone``,
+    ``.fpn``, ``.rpn``, ``.box_head`` and ``.mask_head``."""
     dtype = compute_dtype(cfg)
     native = images.shape[1]
     S = cfg.min_size_test if cfg.min_size_test else native
     q = _quant_tree(state, cfg)
-    x = backbone_input(images, cfg, q, dtype, S)
+    with span("forward.preprocess"):
+        x = backbone_input(images, cfg, q, dtype, S)
     fpn_feats, feat_scales = pyramid_levels(state, q, x, cfg, dtype)
-    logits, deltas = rpn_outputs(state, q, fpn_feats, cfg, dtype)
-    proposals, prop_scores = propose(logits, deltas, cfg, S, images.device)
+    with span("forward.rpn"):
+        logits, deltas = rpn_outputs(state, q, fpn_feats, cfg, dtype)
+        proposals, prop_scores = propose(logits, deltas, cfg, S,
+                                         images.device)
 
-    # box/mask pool from P2..P5, NHWC views of the channels_last maps
-    box_feats = pool_levels(fpn_feats)
-    class_logits, box_deltas = box_head_forward(
-        state["box_head"], box_feats, proposals, cfg, qp=q.get("box"),
-        feat_scales=feat_scales)
-    dets = inference_detections(class_logits, box_deltas, proposals,
-                                prop_scores, cfg, S)
+    with span("forward.box_head"):
+        # box/mask pool from P2..P5, NHWC views of the channels_last maps
+        box_feats = pool_levels(fpn_feats)
+        class_logits, box_deltas = box_head_forward(
+            state["box_head"], box_feats, proposals, cfg, qp=q.get("box"),
+            feat_scales=feat_scales)
+        dets = inference_detections(class_logits, box_deltas, proposals,
+                                    prop_scores, cfg, S)
+        boxes = dets["boxes"]
+        # report boxes in native tile coordinates (the mask head pools
+        # from ``boxes``, in the input's)
+        dets["boxes"] = boxes * (native / S)
 
     if with_masks:
-        masks = class_masks(state, q, box_feats, dets, cfg, feat_scales)
-        if mask_format in ("logits", "both"):
-            dets["mask_logits"] = masks
-        if mask_format in ("u8", "both"):
-            dets["mask_probs_u8"] = torch.round(
-                torch.sigmoid(masks) * 255.0).to(torch.uint8)
-        if mask_format == "bits":
-            # threshold at 0.5 (sigmoid(x) >= 0.5 <=> x >= 0) and pack 8
-            # cells per byte, little bit order (np.unpackbits(...,
-            # bitorder="little") on the host)
-            B2, D2 = masks.shape[:2]
-            bits = (masks >= 0.0).reshape(B2, D2, -1, 8).to(torch.int32)
-            weights = device_constant((1, 2, 4, 8, 16, 32, 64, 128),
-                                      masks.device, torch.int32)
-            dets["mask_bits"] = (bits * weights).sum(-1).to(torch.uint8)
-
-    # report boxes in native tile coordinates
-    dets["boxes"] = dets["boxes"] * (native / S)
+        with span("forward.mask_head"):
+            masks = class_masks(state, q, box_feats, dict(dets, boxes=boxes),
+                                cfg, feat_scales)
+            if mask_format in ("logits", "both"):
+                dets["mask_logits"] = masks
+            if mask_format in ("u8", "both"):
+                dets["mask_probs_u8"] = torch.round(
+                    torch.sigmoid(masks) * 255.0).to(torch.uint8)
+            if mask_format == "bits":
+                # threshold at 0.5 (sigmoid(x) >= 0.5 <=> x >= 0) and pack
+                # 8 cells per byte, little bit order (np.unpackbits(...,
+                # bitorder="little") on the host)
+                B2, D2 = masks.shape[:2]
+                bits = (masks >= 0.0).reshape(B2, D2, -1, 8).to(torch.int32)
+                weights = device_constant((1, 2, 4, 8, 16, 32, 64, 128),
+                                          masks.device, torch.int32)
+                dets["mask_bits"] = (bits * weights).sum(-1).to(torch.uint8)
     return dets
 
 

@@ -22,6 +22,9 @@ engine's ``scan_k``). A :class:`CapturedGraph`:
 ``capture_s`` (host seconds of the capture) and ``pool_bytes`` (device
 memory the capture reserved: its pool) are the readings ``chip_smoke.py``
 reports; ``CapturedGraph.captures`` counts the captures a process made.
+The warm-ups and the capture are the span ``graph.capture``, a replay the
+span ``graph.replay`` (``utils.profiling.span``): a trace sees the
+replay's kernels, one launch, under no stage of the forward.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import time
 import torch
 
 from ..ops import add_launch_counts, launch_counts
+from .profiling import span
 
 
 def tensor_leaves(tree) -> list:
@@ -58,6 +62,7 @@ class CapturedGraph:
 
     captures = 0
 
+    @span("graph.capture")
     def __init__(self, body, warm, device: torch.device):
         CapturedGraph.captures += 1
         self.device = device
@@ -94,6 +99,7 @@ class CapturedGraph:
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
 
+    @span("graph.replay")
     def replay(self):
         """One launch of the whole graph on the current stream; adds the
         captured region's kernel launches to the counters."""

@@ -1,10 +1,15 @@
-"""Tracing and stage timing (the reference package's ``utils/profiling.py``).
+"""Tracing (the reference package's ``utils/profiling.py``).
 
-* :class:`StageTimer`: named wall-clock stages with item counters and a
-  report of items/s (a copy of the reference's);
+* :class:`span`: a named range in the profiler's trace, opened only while
+  a profiler is on. The forward's stages (``forward.*``), the engine's
+  steps (``engine.*``) and the CUDA graph's capture and replay
+  (``graph.*``) are spans, so a trace of any block splits device time
+  and the device's idle gaps by the host step that launched the work.
+  Where the reference times stages on the wall clock (``StageTimer``),
+  the port names them in the trace, on the clock of the device's events;
 * :func:`trace`: a context manager around ``torch.profiler`` that writes a
-  Chrome trace (host and, on CUDA, device activity) of any block, where
-  the reference wraps ``jax.profiler``.
+  Chrome trace (host and, on CUDA, device activity) of any block, spans
+  included, where the reference wraps ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -12,60 +17,48 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-import time
+
+import torch
 
 logger = logging.getLogger(__name__)
 
+_profiler_on = torch._C._autograd._profiler_enabled
 
-class StageTimer:
-    """Accumulating named stage timer.
 
-    >>> t = StageTimer()
-    >>> with t.stage("fetch", items=64): ...
-    >>> t.report()
-    """
+class span(contextlib.ContextDecorator):
+    """``with span("forward.backbone"):``, or ``@span(...)`` on a
+    function: a ``record_function`` range while a profiler records;
+    otherwise one C-level check and nothing else (a range entered with no
+    profiler costs ~100× the check)."""
 
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-        self.items: dict[str, int] = {}
+    def __init__(self, name: str):
+        self.name = name
+        self.rf = None
 
-    @contextlib.contextmanager
-    def stage(self, name: str, items: int = 0):
-        t0 = time.perf_counter()
-        try:
-            yield self
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-            self.items[name] = self.items.get(name, 0) + items
+    def _recreate_cm(self):
+        return span(self.name)       # a call of its own, reentrant
 
-    def report(self, log=logger) -> dict:
-        out = {}
-        for name, total in sorted(self.totals.items(),
-                                  key=lambda kv: -kv[1]):
-            row = {"seconds": round(total, 3),
-                   "calls": self.counts[name]}
-            if self.items.get(name):
-                row["items_per_sec"] = round(self.items[name] / total, 1)
-            out[name] = row
-            extra = (f", {row['items_per_sec']} items/s"
-                     if "items_per_sec" in row else "")
-            log.info(f"[stage] {name}: {total:.3f}s over "
-                     f"{row['calls']} calls{extra}")
-        return out
+    def __enter__(self):
+        if _profiler_on():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | None):
     """Profile the block with ``torch.profiler`` (CPU activity, and CUDA
-    activity where a card is present) and write its Chrome trace to
-    ``log_dir/trace.json``; a no-op when ``log_dir`` is falsy."""
+    activity where a card is present) and write its Chrome trace, with
+    the program's spans, to ``log_dir/trace.json``; a no-op when
+    ``log_dir`` is falsy."""
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -34,7 +34,7 @@ from roadsurf_tpu_torch.io.cog import average_downsample, write_cog
 from roadsurf_tpu_torch.io.geotiff import Raster, read_geotiff
 from roadsurf_tpu_torch.io.objstore import LocalStore, S3Store, make_store
 from roadsurf_tpu_torch.pipeline import cog_pipeline as tcog
-from roadsurf_tpu_torch.utils.profiling import StageTimer, trace
+from roadsurf_tpu_torch.utils.profiling import span, trace
 
 torch.set_num_threads(1)
 
@@ -270,13 +270,8 @@ def test_profiling_trace_and_stage_timer(tmp_path):
         pass
     assert not os.listdir(tmp_path)
     with trace(str(tmp_path / "t")):
-        torch.ones(8).sum()
+        with span("forward.backbone"):
+            torch.ones(8).sum()
     with open(tmp_path / "t" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
-    t = StageTimer()
-    with t.stage("fetch", items=64):
-        pass
-    with t.stage("fetch", items=64):
-        pass
-    rep = t.report()
-    assert rep["fetch"]["calls"] == 2 and rep["fetch"]["items_per_sec"] > 0
+        events = json.load(f)["traceEvents"]
+    assert "forward.backbone" in {e.get("name") for e in events}

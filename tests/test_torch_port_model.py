@@ -171,7 +171,7 @@ def test_engine_pads_trims_and_unpacks_like_the_forward():
     outs = list(eng.run([imgs[0:2], imgs[2:4], imgs[4:5]]))
     assert [o["valid"].shape[0] for o in outs] == [2, 2, 1]
     assert eng.tiles_seen == 5
-    assert set(eng.stats) == {"h2d_s", "d2h_s"}
+    assert set(eng.stats) == {"h2d_s", "d2h_s", "unpack_s"}
     padded = np.concatenate([imgs, np.zeros_like(imgs[:1])])
     for o, b in zip(outs, range(3)):
         # the forward of the padded batch, trimmed: same batch shape, same

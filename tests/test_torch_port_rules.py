@@ -162,6 +162,9 @@ JAX_ONLY = {
     "ops/roi_align_pallas.py": {
         "pick_rb": "ops/roi_align_kernel.py::check_staged_layout",
         "pick_gb": "ops/roi_align_kernel.py::check_staged_layout"},
+    # the reference's wall-clock stage timer: the port names its stages
+    # as ranges in the profiler's trace, on the device events' clock
+    "utils/profiling.py": {"StageTimer": "utils/profiling.py::span"},
 }
 PALLAS = ("ops/nms_pallas.py", "ops/roi_align_pallas.py")
 
