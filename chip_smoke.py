@@ -54,11 +54,21 @@ exits non-zero:
    histogram of kept boxes per tile and level (``_k5_tiles``); then again
    from a float32 d pooled (the float32 profiles' training; float32
    noise, not rounded), float32 gradients only, where the plain gradient
-   of the d pooled rounded to bf16 must fail the tolerance.
+   of the d pooled rounded to bf16 must fail the tolerance. K6
+   (``bias_act``, the conv epilogue): every call of one bf16 inference
+   forward of the parity profile (B=16, 800 px) and of the fast profile
+   (B=64), random weights with drawn biases, each held equal bit for bit
+   to its plain version on the same inputs (``EPILOGUE`` = 77 calls a
+   forward, no conv through the plain ops); the parity forward's calls
+   timed beside their plain version and their byte bound; and
+   ``K6_EDGES`` (C of 3, 12 and 20, odd sides, NaN, ±0, ±inf and a
+   subnormal among the values), bit for bit.
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
    64 random 256 px tiles, the last one short; K1 must have been launched
-   twice per batch, and the outputs must be finite, of the right shapes,
+   twice per batch and K6 77 times (every bf16 inference path: the conv
+   epilogue of each conv, none through the plain ops, ``_plain_convs``),
+   and the outputs must be finite, of the right shapes,
    with valid detections, and equal to a direct ``forward_inference`` of
    the same batch (first and short last batch).
 4. ``profile``: device time by kernel over two more batches of that path
@@ -1226,6 +1236,205 @@ def _pooler_autograd_check(g) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K6: the conv epilogue
+
+# the epilogue's launches in a bf16 inference forward (the stem; conv1,
+# conv2 and the tail of 16 bottlenecks; the FPN's 4 laterals and 4 output
+# convs; the RPN head's 3 convs on 5 levels; the mask head's 4 convs and
+# its deconv); the int8 stack's forward has none
+EPILOGUE = 1 + 16 * 3 + 4 + 4 + 3 * 5 + 4 + 1
+# the epilogue's edge cases (untimed, NaN, ±0, ±inf and a subnormal among
+# the values): C off the 8-channel vector, odd sides
+K6_EDGES = (("bias", (2, 3, 13, 11)), ("bias_relu", (3, 64, 7, 9)),
+            ("tail_shortcut", (2, 12, 5, 3)),
+            ("tail_identity", (2, 20, 3, 5)), ("lateral", (2, 12, 4, 2)))
+K6_SPECIAL = (float("nan"), 0.0, -0.0, float("inf"), -float("inf"), 1e-40)
+
+
+def _plain_convs() -> int:
+    """The forward's convs that took the plain ops so far
+    (``ops.bias_act.counts``): none in a bf16 inference forward on the
+    card."""
+    from roadsurf_tpu_torch.ops.bias_act import counts
+
+    return counts["plain"]
+
+
+def _bf16_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16)
+
+
+def _k6_state(cfg, seed: int) -> dict:
+    """Random weights (``_random_tree``) with every conv's bias drawn
+    (the reference's are zero)."""
+    from roadsurf_tpu_torch.utils.weights import from_jax_params
+
+    gen = torch.Generator().manual_seed(seed)
+    state = from_jax_params(_random_tree(cfg, gen))
+
+    def biases(node):
+        if isinstance(node, dict):
+            if "w" in node and "b" in node and node["w"].dim() == 4:
+                node["b"] = 0.1 * torch.randn(node["b"].shape, generator=gen)
+            for v in node.values():
+                biases(v)
+        elif isinstance(node, list):
+            for v in node:
+                biases(v)
+
+    biases(state)
+    return state
+
+
+def _k6_case(kernel, plain, y, bias, kw) -> tuple:
+    """One epilogue call in place on ``y`` against its plain version on
+    the same inputs, the bf16 bits compared -> (the case, the output)."""
+    want = plain(y, bias, **kw)
+    got = kernel(y, bias, **kw)
+    torch.cuda.synchronize()
+    bad = int((_bf16_bits(got) != _bf16_bits(want)).sum())
+    if kw.get("coarser") is not None:
+        mode = "coarser"
+    elif kw.get("residual") is None:
+        mode = "bias"
+    else:
+        mode = "residual" if kw.get("residual_bias") is None \
+            else "residual_bias"
+    return {"shape": list(y.shape), "mode": mode,
+            "relu": bool(kw.get("relu")), "mismatches": bad,
+            "max_abs_err": bad}, got
+
+
+def _k6_time(kernel, plain, shape, mode: str, relu: bool, g) -> dict:
+    """The kernel's time on fresh bf16 maps of one call's shape (in
+    place: the values change from call to call, the bytes do not), the
+    plain version's, and the byte bound: ``y`` read and written, the
+    residual or the coarser level read."""
+    N, Cn, H, W = shape
+    cl = torch.channels_last
+
+    def draw(*s):
+        return torch.randn(s, generator=g, device="cuda") \
+            .to(torch.bfloat16).contiguous(memory_format=cl)
+
+    y = draw(N, Cn, H, W)
+    bias = torch.randn(Cn, generator=g, device="cuda").to(torch.bfloat16)
+    kw, extra, flops = {"relu": relu}, 0, (2 if relu else 1)
+    if mode == "coarser":
+        kw["coarser"] = draw(N, Cn, H // 2, W // 2)
+        extra, flops = kw["coarser"].numel(), flops + 1
+    elif mode != "bias":
+        kw["residual"] = draw(N, Cn, H, W)
+        extra, flops = y.numel(), flops + 1
+        if mode == "residual_bias":
+            kw["residual_bias"] = torch.randn(
+                Cn, generator=g, device="cuda").to(torch.bfloat16)
+            flops += 1
+    nbytes = 2 * (2 * y.numel() + extra + Cn)
+    out = {"ms": _time_ms(lambda: kernel(y, bias, **kw), 10),
+           "plain_ms": _time_ms(lambda: plain(y, bias, **kw), 3, warmup=1),
+           "library_ms": None, **_bound(nbytes, flops * y.numel())}
+    del y, kw
+    return out
+
+
+def phase_kernels_k6() -> list:
+    """K6 (``bias_act``) at the main paths' shapes: every call of one bf16
+    inference forward of the parity profile (B=16, 800 px) and of the fast
+    profile (B=64, 256 px) on random weights with drawn biases, each held
+    equal bit for bit to its plain version on the same inputs, the
+    forward's launches EPILOGUE and no conv through the plain ops; then
+    ``K6_EDGES``. The parity forward's calls are the ``kernels`` line's:
+    each timed (once a shape and mode) beside its plain version and its
+    byte bound."""
+    from roadsurf_tpu_torch.models import fast_profile, forward_inference
+    from roadsurf_tpu_torch.models.config import from_detectron2_yaml
+    from roadsurf_tpu_torch.ops import bias_act as epilogue
+
+    kernel, plain = epilogue.bias_act, epilogue.bias_act_ref
+    g = torch.Generator(device="cuda").manual_seed(6)
+    parity = from_detectron2_yaml(os.path.join(ROOT, YAML))
+    profiles = (("parity", parity, PB, "bits", True),
+                ("fast", fast_profile(post_nms_topk=32), B, "logits",
+                 False))
+    cases, timed = [], {}
+    for name, cfg, batch, mask_format, main in profiles:
+        calls = []
+
+        def recording(y, bias, relu=False, residual=None,
+                      residual_bias=None, coarser=None):
+            case, out = _k6_case(kernel, plain, y, bias, {
+                "relu": relu, "residual": residual,
+                "residual_bias": residual_bias, "coarser": coarser})
+            calls.append(case)
+            return out
+
+        state = _k6_state(cfg, 6)
+        tiles = np.random.default_rng(6).integers(
+            0, 256, (batch, TILE, TILE, 3), np.uint8)
+        before = epilogue.launches
+        fused, plain0 = epilogue.counts["fused"], _plain_convs()
+        epilogue.bias_act = recording
+        try:
+            forward_inference(state, tiles, cfg, mask_format=mask_format)
+        finally:
+            epilogue.bias_act = kernel
+        torch.cuda.synchronize()
+        launched = epilogue.launches - before
+        # the convs: EPILOGUE and the 4 shortcut convs, each in its
+        # block's tail
+        _require(len(calls) == launched == EPILOGUE
+                 and _plain_convs() == plain0
+                 and epilogue.counts["fused"] - fused == EPILOGUE + 4,
+                 f"bias_act {name}: {len(calls)} calls, {launched} "
+                 f"launches, {_plain_convs() - plain0} plain convs; "
+                 f"expected {EPILOGUE} and none")
+        for i, c in enumerate(calls):
+            key = (tuple(c["shape"]), c["mode"], c["relu"])
+            if main and key not in timed:
+                timed[key] = _k6_time(kernel, plain, *key, g)
+            case = {"case": f"{name} {i:02d} {c['mode']}"
+                    f"{'+relu' if c['relu'] else ''} "
+                    f"{'x'.join(map(str, c['shape']))}", "main": main,
+                    **c, **(timed[key] if main else {})}
+            _emit({"phase": "kernels", "kernel": "bias_act", **case})
+            _require(c["mismatches"] == 0,
+                     f"bias_act differs from its plain version: {case}")
+            cases.append(case)
+        del state
+        torch.cuda.empty_cache()
+    for kind, shape in K6_EDGES:
+        N, Cn, H, W = shape
+
+        def special(*s):
+            t = torch.randn(s, generator=g, device="cuda")
+            flat = t.view(-1)
+            idx = torch.randint(0, flat.numel(), (2 * len(K6_SPECIAL),),
+                                generator=g, device="cuda")
+            flat[idx] = torch.tensor(K6_SPECIAL, device="cuda").repeat(2)
+            t = t.to(torch.bfloat16)
+            return t.contiguous(memory_format=torch.channels_last) \
+                if t.dim() == 4 else t
+
+        kw = {"relu": kind != "bias" and kind != "lateral"}
+        if kind.startswith("tail"):
+            kw["residual"] = special(*shape)
+            if kind == "tail_shortcut":
+                kw["residual_bias"] = special(Cn)
+        elif kind == "lateral":
+            kw["coarser"] = special(N, Cn, H // 2, W // 2)
+        case = {"case": f"edge {kind} {'x'.join(map(str, shape))}",
+                "main": False,
+                **_k6_case(kernel, plain, special(*shape), special(Cn),
+                           kw)[0]}
+        _emit({"phase": "kernels", "kernel": "bias_act", **case})
+        _require(case["mismatches"] == 0,
+                 f"bias_act differs from its plain version: {case}")
+        cases.append(case)
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # main paths
 
 def _random_tree(cfg, gen):
@@ -1247,7 +1456,8 @@ def _drive(label: str, cfg, batch: int, sizes: list, mask_format: str,
     """Run ``TileInferenceEngine`` over random 256 px tiles in batches of
     ``sizes`` after one warm-up batch, with every launch count set to 0
     just before; check the launches (``expect``: per batch, every other
-    count 0), the outputs and the engine against a direct forward of the
+    count 0), that no conv took the plain ops where the epilogue kernel
+    engages, the outputs and the engine against a direct forward of the
     first and the last (padded) batch. An int8 config is calibrated first,
     as ``bench.py`` calibrates it: ``prepare_quantized`` on 8 random 256 px
     tiles of ``np.random.default_rng(1)``."""
@@ -1276,6 +1486,7 @@ def _drive(label: str, cfg, batch: int, sizes: list, mask_format: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    plain0 = _plain_convs()
     list(eng.run([warm]))                          # warm-up batch
     stats0 = dict(eng.stats)
     torch.cuda.synchronize()
@@ -1294,6 +1505,8 @@ def _drive(label: str, cfg, batch: int, sizes: list, mask_format: str,
     want = {k: expect.get(k, 0) * dispatched for k in launches}
     _require(launches == want, f"{label}: launches {launches} for "
              f"{dispatched} batches, expected {want}")
+    _require(_plain_convs() == plain0, f"{label}: "
+             f"{_plain_convs() - plain0} convs took the plain ops")
     _require([o["valid"].shape[0] for o in outs] == sizes,
              "batch sizes not trimmed back")
     D = cfg.detections_per_image
@@ -1364,8 +1577,8 @@ def phase_main_path(int8: bool = False, n_batches: int = 7, tail: int = 40):
     label = "main_path_int8" if int8 else "main_path"
     res, eng, batches = _drive(
         label, cfg, B, [B] * (n_batches - 1) + [tail], "logits",
-        {"roi_align_int8" if int8 else "roi_align": 2}, "mask_logits",
-        (28, 28))
+        {"roi_align_int8": 2} if int8
+        else {"roi_align": 2, "bias_act": EPILOGUE}, "mask_logits", (28, 28))
     res["profile"] = "fast_profile(post_nms_topk=32)" \
         + (f" + {INT8}" if int8 else "")
     _emit(res)
@@ -1394,8 +1607,9 @@ def phase_main_path_parity(int8: bool = False, n_batches: int = 4,
     label = "main_path_parity_int8" if int8 else "main_path_parity"
     res, eng, batches = _drive(
         label, cfg, PB, [PB] * (n_batches - 1) + [tail], "bits",
-        {"roi_align_blocked_int8" if int8 else "roi_align_blocked": 2,
-         "nms": 2}, "mask_bits", (98,))
+        {"roi_align_blocked_int8": 2, "nms": 2} if int8
+        else {"roi_align_blocked": 2, "nms": 2, "bias_act": EPILOGUE},
+        "mask_bits", (98,))
     res["profile"] = f"from_detectron2_yaml({YAML!r})" \
         + (f" + {INT8}" if int8 else "")
     _emit(res)
@@ -1411,7 +1625,8 @@ def phase_main_path_dense(n_batches: int = 2, tail: int = 40):
     cfg = dense_profile()
     res, eng, batches = _drive(
         "main_path_dense", cfg, B, [B] * (n_batches - 1) + [tail], "logits",
-        {"roi_align": 2, "nms": 2}, "mask_logits", (28, 28))
+        {"roi_align": 2, "nms": 2, "bias_act": EPILOGUE}, "mask_logits",
+        (28, 28))
     res["profile"] = "dense_profile()"
     _emit(res)
     return res, eng, batches
@@ -2603,7 +2818,8 @@ SCAN_TRAIN_SIDE, SCAN_TRAIN_B = 800, 8
 # and training paths; a K3 launch is one pair and one sweep kernel)
 PROFILED = {"roi_align_staged_kernel": "pooler",
             "nms_sweep_kernel": "nms",
-            "roi_align_backward_tile_kernel": "roi_align_backward"}
+            "roi_align_backward_tile_kernel": "roi_align_backward",
+            "bias_act_elementwise_kernel": "bias_act"}
 
 
 def _profiled_launches(kernels) -> dict:
@@ -2659,13 +2875,15 @@ def _scan_engine_case(label: str, cfg, batch: int, k: int, sizes: list,
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         _reset_counts()
+        plain0 = _plain_convs()
         outs[scan_k] = list(eng.run(iter(tiles)))
         torch.cuda.synchronize()
         counts = _read_counts()
         ran = -(-len(tiles) // scan_k) * scan_k
         want = {c: per_batch.get(c, 0) * ran for c in counts}
-        _require(counts == want, f"scan_path {label} scan_k={scan_k}: "
-                 f"launches {counts}, expected {want}")
+        _require(counts == want and _plain_convs() == plain0,
+                 f"scan_path {label} scan_k={scan_k}: launches {counts}, "
+                 f"expected {want}; {_plain_convs() - plain0} plain convs")
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2680,6 +2898,8 @@ def _scan_engine_case(label: str, cfg, batch: int, k: int, sizes: list,
         seen = _profiled_launches(kernels)
         counted = {c: after[c] - before[c] for c in after
                    if after[c] != before[c]}
+        # the epilogue's launches the profiler saw are reported, not held
+        # to the counters: CUPTI lost 1 of 1232 records of a replay once
         _require(seen["pooler"] == counted.get(pooler, 0) == 2 * k
                  and seen["nms"] == counted.get("nms", 0)
                  == per_batch.get("nms", 0) * k,
@@ -2741,7 +2961,7 @@ def _scan_sharded_case() -> dict:
         tps[label] = sum(len(x) for x in tiles) / (time.perf_counter() - t0)
         counts[label] = _read_counts()
         ran = -(-len(batches) // k) * k * len(devs)
-        want = {c: (2 * ran if c == "roi_align" else 0)
+        want = {c: {"roi_align": 2, "bias_act": EPILOGUE}.get(c, 0) * ran
                 for c in counts[label]}
         _require(counts[label] == want, f"scan_path sharded {label}: "
                  f"launches {counts[label]}, expected {want}")
@@ -2864,7 +3084,7 @@ def _scan_train_case() -> dict:
     seen = _profiled_launches(kernels)
     _require(counted == want and seen == {
         "pooler": want["roi_align_blocked"], "nms": want["nms"],
-        "roi_align_backward": want["roi_align_backward"]},
+        "roi_align_backward": want["roi_align_backward"], "bias_act": 0},
         f"scan_path training: the counters {counted} and the profiler "
         f"{seen} a scan, expected {want}")
     return {"case": "train", "profile": f"from_detectron2_yaml({YAML!r})",
@@ -2892,10 +3112,11 @@ def phase_scan_path() -> dict:
     parts = [
         _scan_engine_case("fast", fast_profile(post_nms_topk=32), B,
                           SCAN_K_FAST, [B] * 6 + [40], "logits",
-                          {"roi_align": 2}, "roi_align"),
+                          {"roi_align": 2, "bias_act": EPILOGUE},
+                          "roi_align"),
         _scan_engine_case("parity", from_detectron2_yaml(
             os.path.join(ROOT, YAML)), PB, SCAN_K_PARITY, [PB] * 3 + [9],
-            "bits", {"roi_align_blocked": 2, "nms": 2},
+            "bits", {"roi_align_blocked": 2, "nms": 2, "bias_act": EPILOGUE},
             "roi_align_blocked")]
     for part in parts:
         _emit({"phase": "scan_path", **part})
@@ -3106,7 +3327,7 @@ def phase_quality_path(wd: str) -> dict:
                  f"quality_path: the {prof} profile's balanced F1 "
                  f"{m['balanced_f1_all']} is not {F1_OVER_BASELINE} over the "
                  f"baseline's {m['baseline_f1']}")
-    for k in ("roi_align", "nms", "roi_align_backward"):
+    for k in ("roi_align", "nms", "roi_align_backward", "bias_act"):
         _require(res["launches"][k] > 0,
                  f"quality_path: {k} never launched: {res['launches']}")
     return res
@@ -3121,7 +3342,7 @@ def phase_quality_path(wd: str) -> dict:
 ABLATION_VARIANTS = ("fast-R32+int8pyr",)
 MASK_DELTA_MAX = 0.02           # |F1(bits) - F1(u8)|, paired: the same weights
 MEASURE_TILES, MEASURE_BATCH, MEASURE_SCAN_K = 256, 256, 4
-ABLATION_KERNELS = ("roi_align", "roi_align_int8")
+ABLATION_KERNELS = ("roi_align", "roi_align_int8", "bias_act")
 
 
 def _record_keys(records: list) -> list:
@@ -3390,7 +3611,7 @@ def phase_measure_path() -> dict:
     res["seconds"] = time.perf_counter() - t0
     _emit(res)
     for k in ("roi_align", "roi_align_int8", "roi_align_blocked",
-              "roi_align_backward", "int8_gemm"):
+              "roi_align_backward", "int8_gemm", "bias_act"):
         _require(res["launches"][k] > 0,
                  f"measure_path: {k} never launched: {res['launches']}")
     return res
@@ -3403,11 +3624,12 @@ def phase_measure_path() -> dict:
 # BENCH_PATH_STEPS timed steps): (cell, knobs, the kernel launches of one
 # forward)
 BENCH_CELLS = (("fast_int8", {}, {"roi_align_int8": 2}),
-               ("fast_bf16", {"BENCH_INT8": "0"}, {"roi_align": 2}),
+               ("fast_bf16", {"BENCH_INT8": "0"},
+                {"roi_align": 2, "bias_act": EPILOGUE}),
                ("parity_int8", {"BENCH_PROFILE": "parity"},
                 {"roi_align_blocked_int8": 2, "nms": 2}),
                ("parity_bf16", {"BENCH_PROFILE": "parity", "BENCH_INT8": "0"},
-                {"roi_align_blocked": 2, "nms": 2}))
+                {"roi_align_blocked": 2, "nms": 2, "bias_act": EPILOGUE}))
 BENCH_PATH_STEPS = 2
 # the reference's entry(): fast_profile() (8 detections, 28x28 masks) on
 # 8 tiles, the forward's outputs and their shapes
@@ -3429,15 +3651,17 @@ def _bench_cell(label: str, env: dict, per_forward: dict) -> dict:
     b = bench.Bench(dict(env, BENCH_STEPS=str(BENCH_PATH_STEPS)))
     try:
         _reset_counts()
+        plain0 = _plain_convs()
         res = b.measure()
         counts = _read_counts()
+        plain = _plain_convs() - plain0
         k = max(b.scan_k, 1)
         # the capture's two eager warm-up forwards, then k forwards a
         # replay: the warm-up call's and each step's
         forwards = (2 + k * (1 + b.steps)) if b.scan_k > 1 else 1 + b.steps
         want = {c: per_forward.get(c, 0) * forwards for c in counts}
-        _require(counts == want, f"bench_path {label}: launches {counts}, "
-                 f"expected {want}")
+        _require(counts == want and plain == 0, f"bench_path {label}: "
+                 f"launches {counts}, expected {want}; {plain} plain convs")
         alone = []
         before = _read_counts()
         kernels, wall = _device_kernels(
@@ -3448,7 +3672,7 @@ def _bench_cell(label: str, env: dict, per_forward: dict) -> dict:
         b.close()
     seen = _profiled_launches(kernels)
     counted = {c: after[c] - before[c] for c in after if after[c] != before[c]}
-    pooler = next(c for c in per_forward if c != "nms")
+    pooler = next(c for c in per_forward if c.startswith("roi_align"))
     _require(counted == {c: n * k for c, n in per_forward.items()}
              and seen["pooler"] == counted[pooler]
              and seen["nms"] == counted.get("nms", 0),
@@ -3472,7 +3696,8 @@ def _bench_cell(label: str, env: dict, per_forward: dict) -> dict:
 
 def _entry_check() -> dict:
     """``roadsurf_tpu_torch.entry.entry()``'s forward on its own
-    arguments: the reference's output keys and shapes, finite, K1 twice."""
+    arguments: the reference's output keys and shapes, finite, K1 twice,
+    K6 EPILOGUE times."""
     from roadsurf_tpu_torch.entry import entry
 
     fn, (state, images) = entry()
@@ -3488,7 +3713,8 @@ def _entry_check() -> dict:
     _require(shapes == ENTRY_SHAPES and finite
              and out["valid"].dtype == torch.bool,
              f"bench_path entry: shapes {shapes}, finite {finite}")
-    want = {c: 2 if c == "roi_align" else 0 for c in counts}
+    want = {c: {"roi_align": 2, "bias_act": EPILOGUE}.get(c, 0)
+            for c in counts}
     _require(counts == want, f"bench_path entry: launches {counts}")
     return {"shapes": {k: list(v) for k, v in shapes.items()},
             "valid": int(out["valid"].sum()), "seconds": seconds,
@@ -4170,19 +4396,21 @@ def phase_host_stage():
         try:
             torch.cuda.synchronize()
             _reset_counts()
+            plain0 = _plain_convs()
             t0 = time.perf_counter()
             files = detections.run(cfg, batch_size=PB, stats=stats)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
             launches = _read_counts()
+            plain = _plain_convs() - plain0
         finally:
             detections.merge_params = merge
         _require(merges == [[]], f"host_stage: merge skipped {merges}")
         n_batches = -(-HOST_TILES // PB)
-        expect = {"roi_align_blocked": 2, "nms": 2}
+        expect = {"roi_align_blocked": 2, "nms": 2, "bias_act": EPILOGUE}
         want = {k: expect.get(k, 0) * n_batches for k in launches}
-        _require(launches == want, f"host_stage: launches {launches}, "
-                 f"expected {want}")
+        _require(launches == want and plain == 0, f"host_stage: launches "
+                 f"{launches}, expected {want}; {plain} plain convs")
         _require([os.path.basename(f) for f in files]
                  == ["tst_detections_at_0dot05_threshold.gpkg"],
                  f"host_stage wrote {files}")
@@ -4358,7 +4586,8 @@ PATHS = ("main_path", "main_path_parity", "main_path_int8",
          "main_path_parity_int8")
 # kernel entry -> (source, TPU kernel it replaces, count name); K1 runs on
 # the fast paths and the dense one, K2 on the parity paths and the host
-# stage, K3 on those and the dense path, K4 on none
+# stage, K3 on those and the dense path, K4 on none, K6 (the conv
+# epilogue) on every bf16 path
 KERNELS = {
     "roi_align": ("roi_align.cu", "roi_align_pallas.py:638", "roi_align"),
     "roi_align_int8": ("roi_align.cu", "roi_align_pallas.py:638",
@@ -4381,6 +4610,9 @@ KERNELS = {
                            "roi_align_backward"),
     "roi_align_backward_f32": ("roi_align_backward.cu", "roi_align.py:318",
                                "roi_align_backward_f32"),
+    # no TPU kernel: XLA fuses the reference's bias adds, residual sums
+    # and ReLUs into its convolutions
+    "bias_act": ("bias_act.cu", None, "bias_act"),
 }
 
 
@@ -4416,7 +4648,8 @@ def main() -> int:
                      for c in phase_kernels_k3()],
              "int8_gemm": phase_kernels_k4(),
              "roi_align_backward": phase_kernels_k5(),
-             "roi_align_backward_f32": phase_kernels_k5(f32=True)}
+             "roi_align_backward_f32": phase_kernels_k5(f32=True),
+             "bias_act": phase_kernels_k6()}
     phase_kernels_k1_p5()
     runs = {}
     for label in PATHS:
@@ -4474,14 +4707,16 @@ def main() -> int:
     # the times are one forward's calls at the main paths' shapes: both
     # poolers (K2 at its adaptive sampling), the RPN's and the class NMS
     # (K3); K4's are its raw GEMMs at the int8 stack's 1x1 and box FC1
-    # shapes; K5's one training step's, box and mask poolers at B=8
+    # shapes; K5's one training step's, box and mask poolers at B=8; K6's
+    # the parity forward's 77 calls
     _emit({"kernels": [
         _record(name, "roadsurf_tpu_torch/csrc/" + src,
-                "roadsurf_tpu/ops/" + tpu,
+                "roadsurf_tpu/ops/" + tpu if tpu else None,
                 {p: r["launches"][count] for p, r in runs.items()
                  if r["launches"][count]},
                 cases[name], "max_abs_err",
-                "case" if name in ("nms", "int8_gemm") else "pooler")
+                "case" if name in ("nms", "int8_gemm", "bias_act")
+                else "pooler")
         for name, (src, tpu, count) in KERNELS.items()]})
     print(smi)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -46,7 +46,7 @@ from ..utils.device import resolve_device
 from ..utils.weights import state_to
 from .anchors import all_level_anchors
 from .fpn import fpn_forward, upsample2x_nearest
-from .resnet import conv, conv_bn, max_pool, resnet_forward
+from .resnet import conv, max_pool, resnet_forward
 from .rpn import select_proposals
 
 _QMAX = 127.0
@@ -306,20 +306,20 @@ def calibrate_backbone(params, x) -> dict:
     unit's input on the preprocessed float32 batch ``x`` (NCHW); paths as
     the reference's: ("stem",), (stage, block, conv)."""
     maxes = {("stem",): x.abs().amax()}
-    h = max_pool(conv_bn(x, params["stem"], stride=2))
+    h = max_pool(conv(x, params["stem"], stride=2, relu=True))
     for si, stage in enumerate(("res2", "res3", "res4", "res5")):
         first_stride = 1 if si == 0 else 2
         for bi, bp in enumerate(params[stage]):
             stride = first_stride if bi == 0 else 1
             maxes[(stage, bi, "conv1")] = h.abs().amax()
-            out = conv_bn(h, bp["conv1"], stride=stride)
+            out = conv(h, bp["conv1"], stride=stride, relu=True)
             maxes[(stage, bi, "conv2")] = out.abs().amax()
-            out = conv_bn(out, bp["conv2"])
+            out = conv(out, bp["conv2"], relu=True)
             maxes[(stage, bi, "conv3")] = out.abs().amax()
-            out = conv_bn(out, bp["conv3"], relu=False)
+            out = conv(out, bp["conv3"])
             if "shortcut" in bp:
                 maxes[(stage, bi, "shortcut")] = h.abs().amax()
-                sc = conv_bn(h, bp["shortcut"], stride=stride, relu=False)
+                sc = conv(h, bp["shortcut"], stride=stride)
             else:
                 sc = h
             h = torch.relu(out + sc)

@@ -5,7 +5,11 @@ DEPTH 50, NORM FrozenBN, STRIDE_IN_1X1 true, RES2_OUT 256, STEM_OUT 64).
 Activations are NCHW tensors in ``channels_last`` memory (``x.permute(0, 2,
 3, 1)`` is then a contiguous NHWC view, the reference's layout). FrozenBN
 is folded at weight-conversion time (utils/weights.py): each unit is
-``{"w": OIHW weight·scale, "b": bias}``, and the bias rides the conv.
+``{"w": OIHW weight·scale, "b": bias}``, and the bias rides the conv. On
+the card in inference (``ops.bias_act.conv_epilogue``) a conv runs without
+its bias, and one pass of the epilogue kernel applies the bias, the ReLU
+and the bottleneck's residual sum to its output, bit for bit as the plain
+ops.
 """
 
 from __future__ import annotations
@@ -13,31 +17,40 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.bias_act import conv_epilogue
+
 BLOCKS_PER_STAGE = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
 
-def conv(x: torch.Tensor, p: dict, stride: int = 1) -> torch.Tensor:
-    """Conv with the reference's padding: k//2 per side for k > 1, none
+def conv_fn(p: dict, stride: int = 1):
+    """The unit's conv with the reference's padding, as a function of its
+    input and a bias (the unit's, or None): k//2 per side for k > 1, none
     for 1x1 (a strided 1x1 samples every ``stride``-th pixel)."""
     k = p["w"].shape[-1]
-    return F.conv2d(x, p["w"], p["b"], stride=stride, padding=k // 2)
+    return lambda x, b: F.conv2d(x, p["w"], b, stride=stride,
+                                 padding=k // 2)
 
 
-def conv_bn(x: torch.Tensor, p: dict, stride: int = 1,
-            relu: bool = True) -> torch.Tensor:
-    y = conv(x, p, stride)
-    return torch.relu_(y) if relu else y
+def conv(x: torch.Tensor, p: dict, stride: int = 1, relu: bool = False,
+         coarser: torch.Tensor | None = None) -> torch.Tensor:
+    """The unit's conv with its bias, plus the coarser FPN level's 2x
+    upsample where ``coarser``, then ReLU where ``relu``
+    (``ops.bias_act.conv_epilogue``)."""
+    return conv_epilogue(conv_fn(p, stride), x, p["b"], relu=relu,
+                         coarser=coarser)
 
 
 def bottleneck(x: torch.Tensor, p: dict, stride: int = 1) -> torch.Tensor:
     """Bottleneck block, stride in the 1x1 conv (detectron2 convention,
-    detectron2_config_3bands.yaml:111)."""
-    out = conv_bn(x, p["conv1"], stride=stride)
-    out = conv_bn(out, p["conv2"])
-    out = conv_bn(out, p["conv3"], relu=False)
-    sc = conv_bn(x, p["shortcut"], stride=stride, relu=False) \
-        if "shortcut" in p else x
-    return torch.relu_(out + sc)
+    detectron2_config_3bands.yaml:111): ``relu(conv3 + shortcut)``, the
+    shortcut a conv of ``x`` or ``x`` itself."""
+    out = conv(x, p["conv1"], stride, relu=True)
+    out = conv(out, p["conv2"], relu=True)
+    sp = p.get("shortcut")
+    return conv_epilogue(
+        conv_fn(p["conv3"]), out, p["conv3"]["b"], relu=True,
+        residual=x if sp is None else None,
+        shortcut=None if sp is None else (conv_fn(sp, stride), x, sp["b"]))
 
 
 def max_pool(x: torch.Tensor) -> torch.Tensor:
@@ -47,7 +60,7 @@ def max_pool(x: torch.Tensor) -> torch.Tensor:
 
 def resnet_forward(params: dict, images: torch.Tensor) -> dict:
     """images: (B, 3, H, W) in the compute dtype; returns {'res2'..'res5'}."""
-    x = conv_bn(images, params["stem"], stride=2)
+    x = conv(images, params["stem"], stride=2, relu=True)
     x = max_pool(x)
     feats = {}
     for si, stage in enumerate(["res2", "res3", "res4", "res5"]):

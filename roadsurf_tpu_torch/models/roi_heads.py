@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.bias_act import conv_epilogue
 from ..ops.nms import NEG_INF, batched_nms_fixed
 from ..ops.roi_align import roi_align_multilevel
 from .anchors import apply_deltas, clip_boxes
@@ -93,9 +94,11 @@ def mask_head_forward(params: dict, feats: list, boxes: torch.Tensor, cfg,
         x = xq.to(dtype)                       # bf16 after the last conv
     else:
         for i in range(cfg.mask_num_conv):
-            x = torch.relu_(conv(x, params[f"conv{i + 1}"]))
+            x = conv(x, params[f"conv{i + 1}"], relu=True)
     p = params["deconv"]
-    x = torch.relu_(F.conv_transpose2d(x, p["w"], p["b"], stride=2))
+    x = conv_epilogue(lambda t, b: F.conv_transpose2d(t, p["w"], b,
+                                                      stride=2),
+                      x, p["b"], relu=True)
     p = params["predictor"]
     x = F.conv2d(x, p["w"]).float() + p["b"].float()[:, None, None]
     return x.permute(0, 2, 3, 1).reshape(B, D, 2 * P, 2 * P,

@@ -26,7 +26,7 @@ def rpn_head_forward(params: dict, feats: list, num_anchors: int = 3):
     rows in (y, x, a) order like the reference's NHWC reshape."""
     logits, deltas = [], []
     for f in feats:
-        t = torch.relu_(conv(f, params["conv"]))
+        t = conv(f, params["conv"], relu=True)
         o = conv(t, params["objectness"])
         d = conv(t, params["deltas"])
         b = o.shape[0]

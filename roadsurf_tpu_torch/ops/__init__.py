@@ -1,3 +1,4 @@
+from . import bias_act as _epilogue
 from .int8_gemm import int8_gemm
 from .nms import batched_nms_fixed, nms_fixed, nms_scan, nms_sweep
 from .nms_kernel import nms_keep_mask
@@ -12,7 +13,7 @@ __all__ = ["int8_gemm", "roi_align_multilevel", "nms_fixed", "nms_sweep",
 
 # count name -> (kernel wrapper, attribute): each wrapper adds one where it
 # launches its kernel, the poolers per mode of their levels (K5 per type of
-# its d pooled)
+# its d pooled); the conv epilogue's count is on its module
 COUNTERS = {"roi_align": (roi_align_fused, "launches"),
             "roi_align_int8": (roi_align_fused, "launches_int8"),
             "roi_align_f32": (roi_align_fused, "launches_f32"),
@@ -24,7 +25,8 @@ COUNTERS = {"roi_align": (roi_align_fused, "launches"),
             "nms": (nms_keep_mask, "launches"),
             "int8_gemm": (int8_gemm, "launches"),
             "roi_align_backward": (roi_align_backward, "launches"),
-            "roi_align_backward_f32": (roi_align_backward, "launches_f32")}
+            "roi_align_backward_f32": (roi_align_backward, "launches_f32"),
+            "bias_act": (_epilogue, "launches")}
 
 
 def launch_counts() -> dict:

@@ -43,7 +43,7 @@ from ..models.mask_rcnn import _quant_tree, backbone_input, class_masks, \
     init_params, pool_levels, preprocess, preprocessed, propose, \
     pyramid_levels, rpn_outputs
 from ..models.quant import prepare_quantized, resnet_forward_int8
-from ..models.resnet import conv_bn, max_pool, resnet_forward
+from ..models.resnet import conv, max_pool, resnet_forward
 from ..models.roi_heads import box_head_forward, inference_detections
 from ..utils.device import compute_dtype, resolve_device
 from ..utils.weights import from_jax_params, state_to
@@ -96,7 +96,8 @@ def stages(state: dict, cfg: ModelConfig) -> list:
 
     def st_stem(images):
         x = preprocessed(images, cfg, dtype, S)
-        return max_pool(conv_bn(x, state["backbone"]["stem"], stride=2))
+        return max_pool(conv(x, state["backbone"]["stem"], stride=2,
+                             relu=True))
 
     def st_backbone(images):
         if "backbone" in q:

@@ -144,7 +144,10 @@ JAX_ONLY = {
         "data_parallel_mesh": "parallel/mesh.py::DataParallelGroup"},
     "models/resnet.py": {"init_resnet": "models/mask_rcnn.py::init_params",
                          "stop_gradient_frozen":
-                             "engine/train.py::_is_frozen"},
+                             "engine/train.py::_is_frozen",
+                         # the conv and FrozenBN unit with its ReLU: the
+                         # port's conv takes ``relu``
+                         "conv_bn": "models/resnet.py::conv"},
     "models/fpn.py": {"init_fpn": "models/mask_rcnn.py::init_params"},
     "models/rpn.py": {"init_rpn": "models/mask_rcnn.py::init_params"},
     "models/roi_heads.py": {
