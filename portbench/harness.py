@@ -1,7 +1,9 @@
 """One run of one cell: set-up, warm-up, the measured window through
 ``TileInferenceEngine.run``, the check against the plain reference, and
-the metrics. ``run.py`` is the command; the tests drive :func:`run_cell`
-on the CPU.
+the metrics. The cell's model family (``spec.family``) gives the weights,
+the class pin, the reference and the work counts; the tiles are the same
+seeded uint8 tiles for every family. ``run.py`` is the command; the tests
+drive :func:`run_cell` on the CPU.
 
 The window is a closed loop: the feeding iterator hands the engine the
 pool's batches in turn (the engine's own ``in_flight`` keeps that many
@@ -19,7 +21,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from . import check, modelgen, reference, spec, work
+from . import check, modelgen, spec, work
 from .trace import Span, Tracer, wrap
 from .window import Window
 
@@ -75,6 +77,21 @@ class Sampler:
                 self.rows.append(row)
 
 
+class Work:
+    """``ctx.work``: the counts of the cell's family (``forward_flops``,
+    ``pooler_bytes``, ``nms_bytes`` and any it adds for its own kernels)
+    beside the card's peaks of ``work.py``."""
+
+    BF16_PEAK = work.BF16_PEAK
+    HBM_BYTES_PER_S = work.HBM_BYTES_PER_S
+
+    def __init__(self, family):
+        self.family = family
+
+    def __getattr__(self, name):
+        return getattr(self.family, name)
+
+
 @dataclass
 class Context:
     """What a metric's reader reads (``metrics/<name>.py``)."""
@@ -88,7 +105,7 @@ class Context:
     precision: str
     capture_s: float | None
     trace: dict | None
-    work = work
+    work: Work
 
 
 def _feed(pool, order, B, k, seconds, win: Window, tracer, trace_at,
@@ -146,10 +163,11 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         torch.cuda.set_device(dev)
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(dev)
+    family = cell.family
     g = modelgen.generator(seed, dev)
-    state = modelgen.weights(settings, g, dev, DTYPES[precision])
+    state = family.weights(settings, g, dev, DTYPES[precision])
     pool = modelgen.tiles(traffic["pool_tiles"], px, g, dev)
-    modelgen.pin_classes(state, settings, pool[:modelgen.PIN_TILES], dev)
+    family.pin_classes(state, settings, pool[:family.PIN_TILES], dev)
     if prepare is not None:
         cfg, state = prepare(cfg, state, pool, dev)
     eng = TileInferenceEngine(state, cfg, batch_size=B,
@@ -205,9 +223,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     rows = sampler.rows
     t_check = time.perf_counter()
     images = torch.from_numpy(pool[[r["pool"] for r in rows]]).to(dev)
-    ref = reference.run(state, images, settings,
-                        check.given_boxes(rows, dev),
-                        block=traffic["check_block"])
+    ref = family.run(state, images, settings, check.given_boxes(rows, dev),
+                     block=traffic["check_block"])
     values = check.readings(rows, ref, settings["score_thresh_test"],
                             settings["detections_per_image"])
     values["check_s"] = time.perf_counter() - t_check
@@ -216,7 +233,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                   dispatches=dispatches, batch=B, tile_px=px,
                   settings=settings, precision=precision,
                   capture_s=capture_s,
-                  trace=tracer.summary if tracer is not None else None)
+                  trace=tracer.summary if tracer is not None else None,
+                  work=Work(family))
     chosen = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in chosen:

@@ -1,4 +1,5 @@
-"""Inputs and weights of a run, made from ``--seed`` on the run's device.
+"""Inputs of every run, and the R50-FPN family's weights
+(``families/r50_fpn.py``), made from ``--seed`` on the run's device.
 
 Weights: the benchmark's own seeded initialiser, in the layout of
 ``roadsurf_tpu_torch``'s inference state (FrozenBN folded: each conv a

@@ -35,6 +35,14 @@ def caches():
                                              "torch_extensions")
 
 
+def threads():
+    """One thread for the process's OpenMP pools (torch's intra-op pool,
+    numpy's BLAS): the window's host work is one thread's launches and
+    unpacking, and idle pool threads that wake beside it on a shared host
+    stall the launches that pace an eager cell. Set before torch loads."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+
+
 def forbidden_modules() -> list:
     """Loaded modules whose top-level name, compared whole, is JAX's or
     the JAX package's."""
@@ -49,6 +57,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     caches()
+    threads()
     import torch
 
     from portbench import harness, spec

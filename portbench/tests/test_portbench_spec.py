@@ -17,7 +17,7 @@ ROOT = Path(__file__).resolve().parents[2]
 def test_a_new_cell_is_a_file(tmp_path, monkeypatch):
     """A cell added as a traffic file and a BENCHMARK.json entry runs with
     no code edited."""
-    for d in ("configs", "traffic", "metrics"):
+    for d in ("configs", "traffic", "metrics", "families"):
         shutil.copytree(spec.HERE / d, tmp_path / d)
     mix = json.loads((spec.HERE / "traffic" / "detect-b16.json").read_text())
     mix.update(batch=3, scan_k=2)
@@ -82,10 +82,16 @@ def test_a_run_loads_no_jax():
 
 
 def test_the_reference_stands_alone():
-    """The reference, the check and the work counts import nothing of the
-    program, of JAX or of the JAX package."""
+    """The reference, the check, the work counts and every model family
+    (``families/*.py``) import nothing of the program, of JAX or of the
+    JAX package."""
+    names = sorted(p.stem for p in (spec.HERE / "families").glob("*.py"))
+    assert names
     mods = _modules("import portbench.reference, portbench.check, "
-                    "portbench.work, portbench.window, portbench.trace")
+                    "portbench.work, portbench.window, portbench.trace\n"
+                    "from portbench import spec\n"
+                    f"for name in {names!r}:\n"
+                    "    spec.family(name)\n")
     assert not mods & {"jax", "jaxlib", "flax", "roadsurf_tpu",
                        "roadsurf_tpu_torch"}
 

@@ -7,10 +7,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from conftest import narrow
 from portbench import modelgen, reference, spec, work
-from portbench.harness import Context
+from portbench.harness import Context, Work
 from portbench.window import Window
 
-PARITY = spec.cell("parity-800.detect-b16").config["settings"]
+PARITY_CELL = spec.cell("parity-800.detect-b16")
+PARITY = PARITY_CELL.config["settings"]
 FAST = spec.cell("fast-256.area-b512-k4").config["settings"]
 
 
@@ -64,7 +65,8 @@ def test_flops_are_the_references(name):
 def _ctx(trace, settings=PARITY, batch=16):
     return Context(window=Window(), setup_s=1.0, stats={}, dispatches=0,
                    batch=batch, tile_px=256, settings=settings,
-                   precision="bfloat16", capture_s=None, trace=trace)
+                   precision="bfloat16", capture_s=None, trace=trace,
+                   work=Work(PARITY_CELL.family))
 
 
 def test_readers_from_a_trace():

@@ -1,6 +1,7 @@
-"""The work a tile needs, counted from the configuration's shapes, and the
-card's published peaks: what ``mfu`` and the kernel rooflines divide by.
-Nothing here reads the program.
+"""The work a tile of the R50-FPN family needs (``families/r50_fpn.py``),
+counted from the configuration's shapes, and the card's published peaks,
+which every family shares: what ``mfu`` and the kernel rooflines divide
+by. Nothing here reads the program.
 
 Peaks: frozen copies of ``roadsurf_tpu_torch/tools/bench_common.py``'s
 ``BF16_PEAK`` and ``chip_smoke.py``'s ``HBM_BYTES_PER_S`` at commit
