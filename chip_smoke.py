@@ -62,7 +62,15 @@ exits non-zero:
    forward, no conv through the plain ops); the parity forward's calls
    timed beside their plain version and their byte bound; and
    ``K6_EDGES`` (C of 3, 12 and 20, odd sides, NaN, ±0, ±inf and a
-   subnormal among the values), bit for bit.
+   subnormal among the values), bit for bit. K7 (``rel_attention``,
+   ViTDet's attention): every call of one ViTDet-B bf16 forward (B=16
+   tiles at 1024 px: 8 windowed blocks of 25 windows of 196 tokens an
+   image, 4 global over 4096; ``K7_LAUNCHES`` = 12) on the benchmark
+   family's seeded weights, each held within ``_k7_tolerance`` of its
+   plain version on the same inputs, no call through the plain version,
+   and one call of each kind timed beside its plain version and its
+   bound; then both shapes on unit normals with relative-position tables
+   of std 1 (terms of ~8 in the scores).
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
    64 random 256 px tiles, the last one short; K1 must have been launched
@@ -298,6 +306,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores (data sheet)
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
 # |kernel - plain| <= 2^-8·|plain| + 1e-4, for K1 and K2: one bf16 rounding
 # of the output (half an ulp, at most 2^-9 relative) over f32 sums taken in
 # another order (the kernels wy·Σ wx·f per row, the plain versions
@@ -1432,6 +1441,148 @@ def phase_kernels_k6() -> list:
                  f"bias_act differs from its plain version: {case}")
         cases.append(case)
     return cases
+
+
+# ViTDet-B's attention calls in a bf16 forward: 8 windowed blocks and 4
+# global ones; (kind, (B, Hp, Wp, window, heads)) of each at B=16 and
+# 1024 px (the 64x64 grid padded to 70 for windows of 14)
+K7_LAUNCHES = 12
+K7_SHAPES = (("window", (PB, 70, 70, 14, 12)),
+             ("global", (PB, 64, 64, 64, 12)))
+
+
+def _k7_tolerance(qkv, rel_h, rel_w, ws: int, scale: float, want):
+    """2⁻⁷·(|plain| + Σⱼ pᵢⱼ|vⱼ|), element by element: both round their
+    float32 result to bf16 (2⁻⁸ relative each, 2⁻⁷·|plain| together), and
+    the kernel rounds each probability to bf16 (2⁻⁸ relative) before its
+    product with v, which moves an output by at most 2⁻⁸ of its row's
+    Σ p|v|, taken here as the plain version on |v| (itself rounded to
+    bf16, hence 2⁻⁷); the float32 sums' order is far below both."""
+    from roadsurf_tpu_torch.ops.attention import rel_attention_ref
+
+    av = qkv.clone()
+    av[:, :, :, 2].abs_()
+    spv = rel_attention_ref(av, rel_h, rel_w, ws, scale).float()
+    return 2.0 ** -7 * (want.float().abs() + spv)
+
+
+def _k7_case(kernel, plain, qkv, rel_h, rel_w, ws: int, scale: float
+             ) -> tuple:
+    """One attention call against its plain version on the same inputs
+    -> (the case, the kernel's output)."""
+    want = plain(qkv, rel_h, rel_w, ws, scale)
+    got = kernel(qkv, rel_h, rel_w, ws, scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    tol = _k7_tolerance(qkv, rel_h, rel_w, ws, scale, want)
+    B, Hp, Wp, _, heads, _ = qkv.shape
+    return {"shape": [B, Hp, Wp, heads], "window": ws,
+            "kind": "global" if ws == Hp == Wp else "window",
+            "mismatches": int((err > tol).sum())
+            + int((~torch.isfinite(got.float())).sum()),
+            "max_abs_err": err.max().item(),
+            "err_over_tol": (err / tol).max().item()}, got
+
+
+def _k7_inputs(shape, g, rel_std: float):
+    """qkv (B, Hp, Wp, 3, heads, 64) of unit normals and the tables of a
+    drawn relative-position pair of std ``rel_std``, bf16."""
+    from roadsurf_tpu_torch.ops.attention import rel_tables
+
+    B, Hp, Wp, ws, heads = shape
+    qkv = torch.randn((B, Hp, Wp, 3, heads, 64), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    rp = (torch.randn((2, 2 * ws - 1, 64), generator=g, device="cuda")
+          * rel_std).to(torch.bfloat16)
+    return (qkv, *rel_tables(qkv[:, :, :, 0], rp[0], rp[1], ws))
+
+
+def _k7_time(kernel, plain, shape, g) -> dict:
+    """One call's time at ``shape`` on fresh inputs, the plain version's,
+    and its bound: 4·N²·64 FLOPs a head and window at the bf16 peak, or
+    q, k, v, the output and the two tables once at the memory's rate."""
+    B, Hp, Wp, ws, heads = shape
+    qkv, rel_h, rel_w = _k7_inputs(shape, g, 0.1)
+    N, windows = ws * ws, B * (Hp // ws) * (Wp // ws)
+    flops = windows * heads * 4 * N * N * 64
+    nbytes = windows * heads * (4 * N * 64 + 2 * N * ws) * 2
+    out = {"ms": _time_ms(lambda: kernel(qkv, rel_h, rel_w, ws, 0.125), 10),
+           "plain_ms": _time_ms(lambda: plain(qkv, rel_h, rel_w, ws, 0.125),
+                                2, warmup=1),
+           "library_ms": None, **_bound(nbytes, flops, BF16_FLOPS_PER_S)}
+    del qkv, rel_h, rel_w
+    return out
+
+
+def phase_kernels_k7() -> tuple:
+    """K7 (``rel_attention``) at ViTDet-B's shapes: every call of one bf16
+    forward at B=16 (``vitdet_b()``, 1024 px from 256 px tiles, the
+    benchmark family's weights of seed 7, whose relative-position tables,
+    position embedding and qkv bias are drawn away from zero) held within
+    :func:`_k7_tolerance` of its plain version, ``K7_LAUNCHES`` launches
+    and no call through the plain version; each call timed by its kind
+    (:func:`_k7_time`), so the ``kernels`` line's K7 is one forward's
+    calls; then ``K7_SHAPES`` on unit normals with tables of std 1.
+    -> (the cases, {"launches": the forward's launch counts})."""
+    from portbench import modelgen, spec
+    from roadsurf_tpu_torch.models.config import vitdet_b
+    from roadsurf_tpu_torch.models.mask_rcnn import forward_prepared, \
+        prepare_state
+    from roadsurf_tpu_torch.ops import attention as att
+
+    kernel, plain = att.rel_attention, att.rel_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cfg = vitdet_b()
+    cell = spec.cell("vitdet-b-1024.detect-b16")
+    state = prepare_state(cell.family.weights(
+        cell.config["settings"], modelgen.generator(7, "cuda"), "cuda",
+        torch.bfloat16), cfg, "cuda")
+    tiles = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (PB, TILE, TILE, 3), np.uint8)).cuda()
+    calls = []
+
+    def recording(qkv, rel_h, rel_w, ws, scale):
+        case, out = _k7_case(kernel, plain, qkv, rel_h, rel_w, ws, scale)
+        calls.append(case)
+        return out
+
+    fused, plain0 = att.counts["fused"], att.counts["plain"]
+    _reset_counts()
+    att.rel_attention = recording
+    try:
+        with torch.inference_mode():
+            forward_prepared(state, tiles, cfg, True, "bits")
+    finally:
+        att.rel_attention = kernel
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    kinds = [c["kind"] for c in calls]
+    _require(len(calls) == launches["rel_attention"] == K7_LAUNCHES
+             and att.counts["fused"] - fused == K7_LAUNCHES
+             and att.counts["plain"] == plain0
+             and kinds.count("global") == 4,
+             f"rel_attention: {len(calls)} calls ({kinds}), "
+             f"{launches['rel_attention']} launches, "
+             f"{att.counts['plain'] - plain0} plain; expected "
+             f"{K7_LAUNCHES}, 4 of them global, and none plain")
+    del state, tiles
+    torch.cuda.empty_cache()
+    timed = {kind: _k7_time(kernel, plain, shape, g)
+             for kind, shape in K7_SHAPES}
+    cases = []
+    for i, c in enumerate(calls):
+        cases.append({"case": f"vitdet {i:02d} {c['kind']}", "main": True,
+                      **c, **timed[c["kind"]]})
+    for kind, shape in K7_SHAPES:
+        c, _ = _k7_case(kernel, plain, *_k7_inputs(shape, g, 1.0), shape[3],
+                        0.125)
+        cases.append({"case": f"rel_std1 {kind}", "main": False, **c})
+    for case in cases:
+        _emit({"phase": "kernels", "kernel": "rel_attention", **case})
+        _require(case["mismatches"] == 0,
+                 f"rel_attention outside its tolerance: {case}")
+    torch.cuda.empty_cache()
+    return cases, {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4613,6 +4764,8 @@ KERNELS = {
     # no TPU kernel: XLA fuses the reference's bias adds, residual sums
     # and ReLUs into its convolutions
     "bias_act": ("bias_act.cu", None, "bias_act"),
+    # no TPU kernel: the JAX package has no ViT
+    "rel_attention": ("rel_attention.cu", None, "rel_attention"),
 }
 
 
@@ -4650,8 +4803,9 @@ def main() -> int:
              "roi_align_backward": phase_kernels_k5(),
              "roi_align_backward_f32": phase_kernels_k5(f32=True),
              "bias_act": phase_kernels_k6()}
+    cases["rel_attention"], vitdet_forward = phase_kernels_k7()
     phase_kernels_k1_p5()
-    runs = {}
+    runs = {"vitdet_forward": vitdet_forward}
     for label in PATHS:
         fn = phase_main_path_parity if "parity" in label \
             else phase_main_path
@@ -4708,15 +4862,16 @@ def main() -> int:
     # poolers (K2 at its adaptive sampling), the RPN's and the class NMS
     # (K3); K4's are its raw GEMMs at the int8 stack's 1x1 and box FC1
     # shapes; K5's one training step's, box and mask poolers at B=8; K6's
-    # the parity forward's 77 calls
+    # the parity forward's 77 calls; K7's the 12 of a ViTDet-B forward at
+    # B=16
     _emit({"kernels": [
         _record(name, "roadsurf_tpu_torch/csrc/" + src,
                 "roadsurf_tpu/ops/" + tpu if tpu else None,
                 {p: r["launches"][count] for p, r in runs.items()
                  if r["launches"][count]},
                 cases[name], "max_abs_err",
-                "case" if name in ("nms", "int8_gemm", "bias_act")
-                else "pooler")
+                "case" if name in ("nms", "int8_gemm", "bias_act",
+                                   "rel_attention") else "pooler")
         for name, (src, tpu, count) in KERNELS.items()]})
     print(smi)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -207,12 +207,11 @@ def evaluate_dataset(state, cfg, ds, image_size: int,
     Optionally writes ``viz_count`` tagged sample images (drawn
     boxes/masks/scores) to ``viz_dir``."""
     if forward is None:
-        from ..models.mask_rcnn import forward_inference
-        from ..utils.device import compute_dtype, resolve_device
-        from ..utils.weights import state_to
+        from ..models.mask_rcnn import forward_inference, prepare_state
+        from ..utils.device import resolve_device
 
         dev = resolve_device(device)
-        prepared = state_to(state, dev, compute_dtype(cfg))
+        prepared = prepare_state(state, cfg, dev)
 
         def forward(imgs):
             out = forward_inference(prepared, imgs, cfg, mask_format="u8",

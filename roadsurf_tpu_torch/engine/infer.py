@@ -64,11 +64,11 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.mask_rcnn import capture_scan, check_config, forward_prepared
-from ..utils.device import compute_dtype, resolve_device
+from ..models.mask_rcnn import capture_scan, check_config, \
+    forward_prepared, prepare_state
+from ..utils.device import resolve_device
 from ..utils.graphs import tensor_leaves
 from ..utils.profiling import span
-from ..utils.weights import state_to
 
 logger = logging.getLogger(__name__)
 
@@ -160,10 +160,10 @@ class _Replica:
     """One device's copy of the state, its side stream and its pinned
     input slots."""
 
-    def __init__(self, state: dict, device: torch.device, dtype,
+    def __init__(self, state: dict, device: torch.device, cfg: ModelConfig,
                  slots: int):
         self.device = device
-        self.state = state_to(state, device, dtype)
+        self.state = prepare_state(state, cfg, device)
         self.stream = torch.cuda.Stream(device) \
             if device.type == "cuda" else None
         self.in_bufs: list = [None] * slots
@@ -203,7 +203,7 @@ class TileInferenceEngine:
         # in_flight + 1 pinned slots: a slot is reused only after the batch
         # (or group) that last used it was drained (its events waited on)
         self._slots = self.in_flight + 1
-        self.replicas = [_Replica(state, d, compute_dtype(cfg), self._slots)
+        self.replicas = [_Replica(state, d, cfg, self._slots)
                          for d in devices]
         self.state = self.replicas[0].state
         self.shard = batch_size // len(devices)
@@ -234,9 +234,8 @@ class TileInferenceEngine:
         non-tensor values); otherwise the replica takes the placed state
         and drops its graph, which its next group captures anew. A graph
         never replays the previous weights."""
-        dtype = compute_dtype(self.cfg)
         for rep in self.replicas:
-            placed = state_to(state, rep.device, dtype)
+            placed = prepare_state(state, self.cfg, rep.device)
             if rep.graph is not None and _layout(placed) == _layout(
                     rep.state):
                 with torch.inference_mode():

@@ -1,4 +1,4 @@
-"""Model configuration for the Mask R-CNN R50-FPN detector.
+"""Model configuration for the Mask R-CNN detector: R50-FPN, or ViTDet.
 
 A copy of the reference package's ``ModelConfig`` and its profiles (the port
 imports nothing of the JAX package), so the same YAML and profile calls give
@@ -11,6 +11,11 @@ Two execution profiles:
   800, 1000 post-NMS proposals, adaptive pooler sampling);
 * ``fast``    — native 256px tiles, fewer proposals, fixed 2x2 pooler
   sampling; same weights, same math per proposal.
+
+A second backbone, ``backbone="vit"``: ViTDet's plain ViT with windowed and
+global attention and its simple feature pyramid, with the two-conv RPN head
+and the LN box and mask heads (:func:`vitdet_b`; ``models/vit.py``). Its
+fields default to ViT-B's and are not read by the R50-FPN.
 """
 
 from __future__ import annotations
@@ -34,6 +39,22 @@ class ModelConfig:
     # backbone
     freeze_at: int = 2
     fpn_channels: int = 256
+    # "resnet50" (ResNet-50 + FPN) or "vit" (ViTDet: plain ViT + simple
+    # feature pyramid, models/vit.py; detectron2 projects/ViTDet)
+    backbone: str = "resnet50"
+    vit_patch: int = 16
+    vit_dim: int = 768
+    vit_depth: int = 12
+    vit_heads: int = 12
+    vit_mlp_ratio: float = 4.0
+    # blocks not in vit_global_blocks attend within vit_window² windows
+    vit_window: int = 14
+    vit_global_blocks: tuple = (2, 5, 8, 11)
+    # the absolute position embedding's pretraining grid (224 px / 16),
+    # with a class token, resized to the input's grid
+    vit_pretrain_grid: int = 14
+    ln_eps: float = 1e-6
+    sfp_scales: tuple = (4.0, 2.0, 1.0, 0.5)
 
     # anchors (one size per FPN level P2..P6, 3 aspect ratios)
     anchor_sizes: tuple = (32, 64, 128, 256, 512)
@@ -51,6 +72,8 @@ class ModelConfig:
     rpn_iou_thresholds: tuple = (0.3, 0.7)
     rpn_bbox_weights: tuple = (1.0, 1.0, 1.0, 1.0)
     rpn_smooth_l1_beta: float = 0.0
+    # 3x3 convs with ReLU in the RPN head (conv_dims; ViTDet's [-1, -1])
+    rpn_num_conv: int = 1
 
     # ROI heads
     roi_batch_per_image: int = 1024
@@ -63,9 +86,16 @@ class ModelConfig:
     # 2x2 grid
     pooler_sampling_ratio: int = 0
     box_fc_dim: int = 1024
+    # the box head's 3x3 convs at the pooled width before its FCs, and the
+    # FCs (FastRCNNConvFCHead: 2fc for R50, 4conv1fc for ViTDet)
+    box_num_conv: int = 0
+    box_num_fc: int = 2
     box_bbox_weights: tuple = (10.0, 10.0, 5.0, 5.0)
     mask_conv_dim: int = 256
     mask_num_conv: int = 4
+    # "" or "LN": the box and mask heads' convs without bias, each followed
+    # by a channel LayerNorm (ln_eps) before its ReLU
+    head_norm: str = ""
     score_thresh_test: float = 0.05
     nms_thresh_test: float = 0.5
     detections_per_image: int = 100
@@ -112,6 +142,19 @@ class ModelConfig:
     train_mask_rois: int = 128
     train_head_chunks: int = 1
 
+    def __post_init__(self):
+        if self.backbone not in ("resnet50", "vit"):
+            raise ValueError(f"backbone must be 'resnet50' or 'vit', got "
+                             f"{self.backbone!r}")
+        if self.backbone == "vit" and (self.int8_backbone or self.int8_scope
+                                       or self.int8_pyramid):
+            raise ValueError("the int8 stack (int8_backbone, int8_scope, "
+                             "int8_pyramid) quantizes the ResNet-50 and FPN; "
+                             "backbone='vit' has none")
+        if self.box_num_conv and self.head_norm != "LN":
+            raise ValueError("the box head's convs (box_num_conv) run with "
+                             "head_norm='LN' only")
+
     @property
     def fpn_strides(self) -> tuple:
         return (4, 8, 16, 32, 64)   # P2..P6
@@ -119,6 +162,13 @@ class ModelConfig:
     @property
     def num_anchors(self) -> int:
         return len(self.anchor_aspect_ratios)
+
+
+def field(cfg, name: str):
+    """``cfg.<name>``, or :class:`ModelConfig`'s default where ``cfg`` has
+    no such field: the reference package's config, which the parity tests
+    hand to the port, runs the R50-FPN."""
+    return getattr(cfg, name, getattr(ModelConfig, name))
 
 
 def fast_profile(cfg: ModelConfig | None = None, *,
@@ -135,6 +185,26 @@ def fast_profile(cfg: ModelConfig | None = None, *,
                    pooler_sampling_ratio=2,
                    fast_nms=True,
                    rpn_local_max_gate=True)
+
+
+def vitdet_b(cfg: ModelConfig | None = None) -> ModelConfig:
+    """ViTDet-B Mask R-CNN at its published 1024 px input (detectron2
+    projects/ViTDet/configs/COCO/mask_rcnn_vitdet_b_100ep.py, through
+    configs/common/models/mask_rcnn_vitdet.py): ViT-B/16, 14x14 windows with
+    global blocks 2, 5, 8 and 11, the simple feature pyramid, a two-conv RPN
+    head, the 4conv1fc box head and the mask head, both with LN; RGB pixel
+    mean and std; the parity profile's test budgets."""
+    cfg = cfg or ModelConfig()
+    return replace(cfg, backbone="vit",
+                   pixel_mean=(123.675, 116.28, 103.53),
+                   pixel_std=(58.395, 57.12, 57.375),
+                   min_size_test=1024, max_size_test=1024,
+                   vit_patch=16, vit_dim=768, vit_depth=12, vit_heads=12,
+                   vit_mlp_ratio=4.0, vit_window=14,
+                   vit_global_blocks=(2, 5, 8, 11), vit_pretrain_grid=14,
+                   ln_eps=1e-6, sfp_scales=(4.0, 2.0, 1.0, 0.5),
+                   rpn_num_conv=2, box_num_conv=4, box_num_fc=1,
+                   head_norm="LN")
 
 
 def dense_profile(cfg: ModelConfig | None = None) -> ModelConfig:

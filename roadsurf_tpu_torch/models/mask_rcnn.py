@@ -1,7 +1,8 @@
-"""GeneralizedRCNN (Mask R-CNN R50-FPN) inference assembly.
+"""GeneralizedRCNN (Mask R-CNN R50-FPN, or ViTDet) inference assembly.
 
   uint8 tiles -> [optional resize to MIN_SIZE_TEST] -> normalize
-  -> ResNet-50 + FPN -> RPN proposals -> box head -> fixed-shape class NMS
+  -> ResNet-50 + FPN (or ViT + simple feature pyramid, ``models/vit.py``)
+  -> RPN proposals -> box head -> fixed-shape class NMS
   -> mask head on the detections -> 28x28 per-instance masks.
 
 Port of the reference's ``forward_inference``, with its static-int8
@@ -25,8 +26,9 @@ from ..utils.device import compute_dtype, device_constant, resolve_device
 from ..utils.graphs import CapturedGraph, storage_key, tensor_leaves
 from ..utils.profiling import span
 from ..utils.weights import state_to
+from . import vit
 from .anchors import anchors_on
-from .config import ModelConfig
+from .config import ModelConfig, field
 from .fpn import fpn_forward
 from .quant import fpn_forward_int8, fpn_forward_int8_pyr, \
     resnet_forward_int8, rpn_head_forward_int8, rpn_head_forward_int8_pyr
@@ -152,8 +154,11 @@ def backbone_input(images: torch.Tensor, cfg: ModelConfig, q: dict, dtype,
 
 
 def pyramid_levels(state, q, x, cfg, dtype):
-    """Backbone and FPN, each int8 where ``q`` has its group -> (P-levels
-    NCHW channels_last, the levels' scales or None)."""
+    """Backbone and FPN, each int8 where ``q`` has its group, or the ViT and
+    its simple feature pyramid -> (P-levels NCHW channels_last, the levels'
+    scales or None)."""
+    if field(cfg, "backbone") == "vit":
+        return vit.backbone_sfp(state, x, cfg), None
     pyr = q.get("pyr") if cfg.int8_pyramid else None
     if pyr is not None:
         # int8 pyramid: stage outputs, FPN and P-levels stay int8; the RPN
@@ -176,7 +181,7 @@ def rpn_outputs(state, q, fpn_feats, cfg, dtype):
     if "rpn" in q:
         return rpn_head_forward_int8(q["rpn"], fpn_feats)
     return rpn_head_forward(state["rpn"], [f.to(dtype) for f in fpn_feats],
-                            cfg.num_anchors)
+                            cfg.num_anchors, field(cfg, "rpn_num_conv"))
 
 
 def propose(logits, deltas, cfg: ModelConfig, S: int, device):
@@ -212,12 +217,22 @@ def class_masks(state, q, box_feats, dets: dict, cfg: ModelConfig,
     )[..., 0]
 
 
+def prepare_state(state: dict, cfg: ModelConfig, device) -> dict:
+    """The state placed for the config's forward (``state_to``), with the
+    ViT's position embedding resized to the input's grid once
+    (``vit.prepare``)."""
+    state = state_to(state, device, compute_dtype(cfg))
+    return vit.prepare(state, cfg) if field(cfg, "backbone") == "vit" \
+        else state
+
+
 def forward_prepared(state: dict, images: torch.Tensor, cfg: ModelConfig,
              with_masks: bool, mask_format: str) -> dict:
-    """The forward on prepared weights (``state_to``) and images already on
-    their device. Its stages are spans (``utils.profiling.span``), in this
-    order, each ATen op in one: ``forward.preprocess``, ``.backbone``,
-    ``.fpn``, ``.rpn``, ``.box_head`` and ``.mask_head``."""
+    """The forward on prepared weights (:func:`prepare_state`) and images
+    already on their device. Its stages are spans
+    (``utils.profiling.span``), in this order, each ATen op in one:
+    ``forward.preprocess``, ``.backbone``, ``.fpn``, ``.rpn``,
+    ``.box_head`` and ``.mask_head``."""
     dtype = compute_dtype(cfg)
     native = images.shape[1]
     S = cfg.min_size_test if cfg.min_size_test else native
@@ -273,7 +288,7 @@ def forward_inference(state: dict, images, cfg: ModelConfig,
     ``device`` names CUDA and no CUDA device is present."""
     device = resolve_device(device)
     check_config(cfg, mask_format)
-    state = state_to(state, device, compute_dtype(cfg))
+    state = prepare_state(state, cfg, device)
     with torch.inference_mode():
         images = torch.as_tensor(images).to(device)
         return forward_prepared(state, images, cfg, with_masks, mask_format)
@@ -301,7 +316,7 @@ def make_inference_scan_fn(cfg: ModelConfig, with_masks: bool = True,
                            mask_format: str = "logits"):
     """The reference's ``make_inference_scan_fn``: returns ``fn(state,
     images)``, ``images`` (k, B, H, W, 3) uint8 (numpy or a tensor) and
-    ``state`` prepared on its device (``state_to``), whose result is the
+    ``state`` prepared on its device (``prepare_state``), whose result is the
     detection dict of :func:`forward_prepared` stacked on a leading k axis.
 
     On a CUDA device the k forwards are one CUDA graph

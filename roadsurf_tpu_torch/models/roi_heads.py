@@ -9,6 +9,11 @@ image. All stages are fixed-shape (padded, masked).
 With the static-int8 stack (``models/quant.py``) the box head's FC1 and FC2
 and the whole mask head run int8 (``qp``), and the levels may be int8
 pyramid levels in per-level scales (``feat_scales``).
+
+ViTDet's heads (``config.vitdet_b``): the box head runs ``box_num_conv``
+3x3 convs before its ``box_num_fc`` FCs (4conv1fc), and with ``head_norm``
+"LN" the box and mask heads' convs have no bias and a channel LayerNorm
+before each ReLU (``vit.conv_ln_relu``).
 """
 
 from __future__ import annotations
@@ -20,8 +25,10 @@ from ..ops.bias_act import conv_epilogue
 from ..ops.nms import NEG_INF, batched_nms_fixed
 from ..ops.roi_align import roi_align_multilevel
 from .anchors import apply_deltas, clip_boxes
+from .config import field
 from .quant import _quantize_act, qconv_int8_in, qdeconv_int8_in, qlinear
 from .resnet import conv
+from .vit import conv_ln_relu
 
 
 def _linear(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -43,22 +50,37 @@ def box_head_forward(params: dict, feats: list, boxes: torch.Tensor, cfg,
     """feats: NHWC (B, H, W, C) levels; boxes (B, R, 4) ->
     (class_logits (B, R, C+1), deltas (B, R, C, 4)), float32.
 
-    The pooled features flatten in (p, q, c) order, the row order of the
-    reference's fc1 weight. ``qp``: int8 FC1 and FC2 (the predictors stay
-    in the compute dtype); ``feat_scales``: the levels' scales when they
-    are int8."""
+    The pooled features (after the box head's convs, ``box_num_conv``)
+    flatten in (p, q, c) order, the row order of the reference's fc1
+    weight; ``box_num_fc`` FCs follow, ``fc1``, ``fc2``, .... ``qp``: int8
+    FC1 and FC2 (the predictors stay in the compute dtype);
+    ``feat_scales``: the levels' scales when they are int8."""
     B, R = boxes.shape[:2]
-    x = _pool(feats, boxes, cfg.box_pooler_resolution, cfg,
-              feat_scales).reshape(B * R, -1)
+    P = cfg.box_pooler_resolution
+    x = _pool(feats, boxes, P, cfg, feat_scales)
+    if field(cfg, "box_num_conv"):
+        x = _box_convs(params, x.reshape(B * R, P, P, -1), cfg)
+    x = x.reshape(B * R, -1)
     if qp is not None:
         x = qlinear(x, qp["fc1"], relu=True)
         x = qlinear(x, qp["fc2"], relu=True)
     else:
-        x = torch.relu(_linear(x, params["fc1"]))
-        x = torch.relu(_linear(x, params["fc2"]))
+        for i in range(field(cfg, "box_num_fc")):
+            x = torch.relu(_linear(x, params[f"fc{i + 1}"]))
     logits = _linear(x, params["cls"]).reshape(B, R, -1)
     deltas = _linear(x, params["bbox"]).reshape(B, R, cfg.num_classes, 4)
     return logits, deltas
+
+
+def _box_convs(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The box head's convs on pooled (N, P, P, C) -> (N, P, P, C): each
+    ``conv{i}`` without bias, ``norm{i}``'s channel LN, ReLU (the config
+    pairs box convs with ``head_norm`` "LN")."""
+    x = x.to(params["conv1"]["w"].dtype).permute(0, 3, 1, 2)
+    for i in range(1, cfg.box_num_conv + 1):
+        x = conv_ln_relu(x, params[f"conv{i}"], params[f"norm{i}"],
+                         cfg.ln_eps)
+    return x.permute(0, 2, 3, 1)
 
 
 def mask_head_forward(params: dict, feats: list, boxes: torch.Tensor, cfg,
@@ -92,6 +114,10 @@ def mask_head_forward(params: dict, feats: list, boxes: torch.Tensor, cfg,
             return x.permute(0, 2, 3, 1).reshape(B, D, 2 * P, 2 * P,
                                                  cfg.num_classes)
         x = xq.to(dtype)                       # bf16 after the last conv
+    elif field(cfg, "head_norm") == "LN":
+        for i in range(1, cfg.mask_num_conv + 1):
+            x = conv_ln_relu(x, params[f"conv{i}"], params[f"norm{i}"],
+                             cfg.ln_eps)
     else:
         for i in range(cfg.mask_num_conv):
             x = conv(x, params[f"conv{i + 1}"], relu=True)

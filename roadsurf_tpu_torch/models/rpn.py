@@ -1,10 +1,10 @@
 """Region Proposal Network (StandardRPNHead + proposal selection).
 
 Pinned behavior (reference detectron2_config_3bands.yaml:222-251): shared
-3x3 conv head over P2..P6, 3 anchors per cell, NMS 0.7, delta weights
-(1,1,1,1). Everything runs at fixed shapes: per-level top-k, per-level NMS,
-and the final proposal tensor is always (B, post_nms_topk, 4) with
-``NEG_INF`` scores on padded slots.
+3x3 conv head over P2..P6 (ViTDet's: two, ``cfg.rpn_num_conv``), 3 anchors
+per cell, NMS 0.7, delta weights (1,1,1,1). Everything runs at fixed
+shapes: per-level top-k, per-level NMS, and the final proposal tensor is
+always (B, post_nms_topk, 4) with ``NEG_INF`` scores on padded slots.
 """
 
 from __future__ import annotations
@@ -21,12 +21,16 @@ from .anchors import apply_deltas, clip_boxes
 from .resnet import conv
 
 
-def rpn_head_forward(params: dict, feats: list, num_anchors: int = 3):
+def rpn_head_forward(params: dict, feats: list, num_anchors: int = 3,
+                     num_conv: int = 1):
     """Returns per-level (objectness (B, H*W*A), deltas (B, H*W*A, 4)),
-    rows in (y, x, a) order like the reference's NHWC reshape."""
+    rows in (y, x, a) order like the reference's NHWC reshape. The head's
+    ``num_conv`` 3x3 convs with ReLU are ``conv``, ``conv2``, ..."""
     logits, deltas = [], []
     for f in feats:
         t = conv(f, params["conv"], relu=True)
+        for i in range(2, num_conv + 1):
+            t = conv(t, params[f"conv{i}"], relu=True)
         o = conv(t, params["objectness"])
         d = conv(t, params["deltas"])
         b = o.shape[0]

@@ -1,3 +1,4 @@
+from . import attention as _attention
 from . import bias_act as _epilogue
 from .int8_gemm import int8_gemm
 from .nms import batched_nms_fixed, nms_fixed, nms_scan, nms_sweep
@@ -13,7 +14,8 @@ __all__ = ["int8_gemm", "roi_align_multilevel", "nms_fixed", "nms_sweep",
 
 # count name -> (kernel wrapper, attribute): each wrapper adds one where it
 # launches its kernel, the poolers per mode of their levels (K5 per type of
-# its d pooled); the conv epilogue's count is on its module
+# its d pooled); the conv epilogue's and the attention's counts are on their
+# modules
 COUNTERS = {"roi_align": (roi_align_fused, "launches"),
             "roi_align_int8": (roi_align_fused, "launches_int8"),
             "roi_align_f32": (roi_align_fused, "launches_f32"),
@@ -26,7 +28,8 @@ COUNTERS = {"roi_align": (roi_align_fused, "launches"),
             "int8_gemm": (int8_gemm, "launches"),
             "roi_align_backward": (roi_align_backward, "launches"),
             "roi_align_backward_f32": (roi_align_backward, "launches_f32"),
-            "bias_act": (_epilogue, "launches")}
+            "bias_act": (_epilogue, "launches"),
+            "rel_attention": (_attention, "launches")}
 
 
 def launch_counts() -> dict:

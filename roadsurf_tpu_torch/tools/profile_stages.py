@@ -40,13 +40,13 @@ import torch
 
 from ..models.config import ModelConfig, fast_profile
 from ..models.mask_rcnn import _quant_tree, backbone_input, class_masks, \
-    init_params, pool_levels, preprocess, preprocessed, propose, \
-    pyramid_levels, rpn_outputs
+    init_params, pool_levels, prepare_state, preprocess, preprocessed, \
+    propose, pyramid_levels, rpn_outputs
 from ..models.quant import prepare_quantized, resnet_forward_int8
 from ..models.resnet import conv, max_pool, resnet_forward
 from ..models.roi_heads import box_head_forward, inference_detections
 from ..utils.device import compute_dtype, resolve_device
-from ..utils.weights import from_jax_params, state_to
+from ..utils.weights import from_jax_params
 from .bench_common import FLOPS_COUNTED, card, emit, \
     flop_count, staged, time_steps
 
@@ -85,7 +85,7 @@ def selected(names, sel: str) -> list:
 def stages(state: dict, cfg: ModelConfig) -> list:
     """[(name, fn)]: each ``fn(images)`` runs the forward up to its stage
     on uint8 tiles (B, H, W, 3) on the state's device and returns the
-    stage's outputs; ``state`` prepared (``state_to``)."""
+    stage's outputs; ``state`` prepared (``prepare_state``)."""
     dtype = compute_dtype(cfg)
     S = cfg.min_size_test
     q = _quant_tree(state, cfg)
@@ -164,7 +164,7 @@ def model_state(cfg: ModelConfig, dev: torch.device, tile: int = TILE,
         cal = np.random.default_rng(1).integers(
             0, 255, (CAL_TILES, tile, tile, 3), dtype=np.uint8)
         state["quant"] = prepare_quantized(state, cal, cfg, device=dev)
-    return state_to(state, dev, compute_dtype(cfg))
+    return prepare_state(state, cfg, dev)
 
 
 def tile_batches(batch: int, n: int, dev: torch.device,

@@ -82,10 +82,10 @@ def test_requantize_folded_exact():
 def test_k4_is_built_with_the_other_kernels_and_needs_no_nvcc_to_import():
     """The module imported above without nvcc (nothing builds at import);
     ``cuda_build`` builds ``csrc/int8_gemm.cu`` beside the poolers, NMS,
-    the poolers' gradient and the conv epilogue."""
+    the poolers' gradient, the conv epilogue and the ViT's attention."""
     assert cuda_build.SOURCES == ("roi_align", "roi_align_blocked", "nms",
                                   "int8_gemm", "roi_align_backward",
-                                  "bias_act")
+                                  "bias_act", "rel_attention")
     assert (cuda_build.CSRC / "int8_gemm.cu").exists()
 
 

@@ -65,9 +65,22 @@ def parity_cfgs(S: int, pre: int, post: int, D: int):
         replace(from_detectron2_yaml(YAML), **knobs)
 
 
+def same_fields(port, ref):
+    """The port's config holds every field of the reference's, equal; its
+    own fields (the ViT backbone's and the heads' of ``vitdet_b``) are at
+    their R50-FPN defaults."""
+    got, want = asdict(port), asdict(ref)
+    assert {k: got[k] for k in want} == want
+    extra = {k: v for k, v in got.items() if k not in want}
+    assert extra == {k: v for k, v in asdict(type(port)()).items()
+                     if k not in want}
+    assert (port.backbone, port.rpn_num_conv, port.box_num_conv,
+            port.box_num_fc, port.head_norm) == ("resnet50", 1, 0, 2, "")
+
+
 def test_yaml_config_equals_the_reference_field_for_field():
     got, ref = from_detectron2_yaml(YAML), j_from_yaml(YAML)
-    assert asdict(got) == asdict(ref)
+    same_fields(got, ref)
     assert (got.min_size_test, got.pooler_sampling_ratio,
             got.rpn_pre_nms_topk_test, got.rpn_post_nms_topk_test,
             got.detections_per_image, got.fast_nms) \
@@ -132,7 +145,7 @@ def test_dense_profile_forward_matches_jax_in_f32():
     knobs = dict(fpn_channels=32, box_fc_dim=64, mask_conv_dim=32,
                  min_size_test=64, max_size_test=64, compute_dtype="float32")
     jcfg, tcfg = replace(j_dense(), **knobs), replace(dense_profile(), **knobs)
-    assert asdict(jcfg) == asdict(tcfg)
+    same_fields(tcfg, jcfg)
     assert (tcfg.pooler_sampling_ratio, tcfg.fast_nms,
             tcfg.rpn_pre_nms_topk_test, tcfg.rpn_post_nms_topk_test,
             tcfg.detections_per_image) == (2, False, 1024, 256, 16)
