@@ -1445,8 +1445,10 @@ def phase_kernels_k6() -> list:
 
 # ViTDet-B's attention calls in a bf16 forward: 8 windowed blocks and 4
 # global ones; (kind, (B, Hp, Wp, window, heads)) of each at B=16 and
-# 1024 px (the 64x64 grid padded to 70 for windows of 14)
+# 1024 px (the 64x64 grid padded to 70 for windows of 14); the kernel's
+# launches of a forward by its path (``attention.path_launches``)
 K7_LAUNCHES = 12
+K7_PATHS = {"row": 4, "window": 8}
 K7_SHAPES = (("window", (PB, 70, 70, 14, 12)),
              ("global", (PB, 64, 64, 64, 12)))
 
@@ -1522,7 +1524,9 @@ def phase_kernels_k7() -> tuple:
     :func:`_k7_tolerance` of its plain version, ``K7_LAUNCHES`` launches
     and no call through the plain version; each call timed by its kind
     (:func:`_k7_time`), so the ``kernels`` line's K7 is one forward's
-    calls; then ``K7_SHAPES`` on unit normals with tables of std 1.
+    calls, and the global calls on the kernel's row path and the windowed
+    ones on its window path (``K7_PATHS``); then ``K7_SHAPES`` on unit
+    normals with tables of std 1.
     -> (the cases, {"launches": the forward's launch counts})."""
     from portbench import modelgen, spec
     from roadsurf_tpu_torch.models.config import vitdet_b
@@ -1556,15 +1560,19 @@ def phase_kernels_k7() -> tuple:
         att.rel_attention = kernel
     torch.cuda.synchronize()
     launches = _read_counts()
+    paths = dict(att.path_launches)
     kinds = [c["kind"] for c in calls]
     _require(len(calls) == launches["rel_attention"] == K7_LAUNCHES
              and att.counts["fused"] - fused == K7_LAUNCHES
              and att.counts["plain"] == plain0
-             and kinds.count("global") == 4,
+             and kinds.count("global") == 4 and paths == K7_PATHS,
              f"rel_attention: {len(calls)} calls ({kinds}), "
-             f"{launches['rel_attention']} launches, "
+             f"{launches['rel_attention']} launches ({paths} by path), "
              f"{att.counts['plain'] - plain0} plain; expected "
-             f"{K7_LAUNCHES}, 4 of them global, and none plain")
+             f"{K7_LAUNCHES}, 4 of them global, {K7_PATHS} by path, and "
+             f"none plain")
+    _emit({"phase": "kernels", "kernel": "rel_attention",
+           "path_launches": paths})
     del state, tiles
     torch.cuda.empty_cache()
     timed = {kind: _k7_time(kernel, plain, shape, g)

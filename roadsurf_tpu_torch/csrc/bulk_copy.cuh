@@ -1,10 +1,10 @@
 // Bulk copies from global to shared memory (cp.async.bulk, the non-tensor
-// TMA, and its 2-D tensor form) whose bytes complete on a shared-memory
-// mbarrier, the mbarrier operations, and the host's encoder of tensor maps,
-// for the kernels of roi_align_staged.cuh, nms.cu, int8_gemm.cu and
-// roi_align_backward.cu. A barrier of a copy counts one arrival (the thread
-// that issues the copies) and the bytes it expects; a consumer waits on the
-// barrier's phase parity.
+// TMA, and its 2-D and 4-D tensor forms) whose bytes complete on a
+// shared-memory mbarrier, the mbarrier operations, and the host's encoder of
+// tensor maps, for the kernels of roi_align_staged.cuh, nms.cu,
+// int8_gemm.cu, roi_align_backward.cu and rel_attention.cu. A barrier of a
+// copy counts one arrival (the thread that issues the copies) and the bytes
+// it expects; a consumer waits on the barrier's phase parity.
 
 #pragma once
 
@@ -88,6 +88,20 @@ __device__ __forceinline__ void tensor_copy_2d(void* dst,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// 4-D tensor copy of the box at (c0 along the inner dimension, c1, c2, c3)
+// of `map`, as tensor_copy_2d.
+__device__ __forceinline__ void tensor_copy_4d(void* dst,
+                                               const CUtensorMap* map,
+                                               int c0, int c1, int c2, int c3,
+                                               uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

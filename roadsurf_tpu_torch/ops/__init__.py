@@ -38,8 +38,12 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Set every count to 0, the attention's launches by path
+    (``attention.path_launches``) among them."""
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    for p in _attention.path_launches:
+        _attention.path_launches[p] = 0
 
 
 def add_launch_counts(delta: dict) -> None:

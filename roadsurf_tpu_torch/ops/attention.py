@@ -20,7 +20,11 @@ bf16). :func:`attention` engages the kernel (:func:`engages`) for ``qkv``
 on the card in bf16 with grad off; the CPU, float32 and training take
 :func:`rel_attention_ref`, the materialised form. ``counts`` counts the
 calls on each side ("fused", "plain"); ``launches`` the kernel's launches
-(``ops.launch_counts``' "rel_attention").
+(``ops.launch_counts``' "rel_attention"), and ``path_launches`` each of
+its two tilings' (:func:`path`): "row" where a window is 64 tokens wide (a
+key step is two rows of the grid; ViTDet's global blocks at 1024 px),
+"window" below (a key step is a block of the window's rows; ViTDet's
+windows of 14 are one step). ``ops.reset_launch_counts`` resets both.
 """
 
 from __future__ import annotations
@@ -39,9 +43,10 @@ MAX_WINDOWS = 65535  # windows of a call (B · windows an image), at most
 REF_CHUNK = 1 << 28
 
 # attention calls that took the kernel ("fused") or the plain version
-# ("plain"), and the kernel's launches
+# ("plain"), the kernel's launches, and its launches by path
 counts = {"fused": 0, "plain": 0}
 launches = 0
+path_launches = {"row": 0, "window": 0}
 
 
 def engages(qkv: torch.Tensor) -> bool:
@@ -115,11 +120,20 @@ def rel_attention_ref(qkv: torch.Tensor, rel_h: torch.Tensor,
     return out.to(qkv.dtype)
 
 
+def path(ws: int) -> str:
+    """The kernel's tiling for windows of ``ws``: "row" at 64, the widest
+    (a key step is two rows of the grid, 128 keys), "window" below (a key
+    step is a block of the window's rows, the whole window up to 14)."""
+    return "row" if ws == MAX_WINDOW else "window"
+
+
 def _check(qkv, rel_h, rel_w, ws):
     """Refuse what the kernel does not take: tensors off ``qkv``'s card or
-    not bf16, ``qkv`` not a contiguous (B, Hp, Wp, 3, heads, 64), tables
-    not contiguous (B, Hp, Wp, heads, ws), a grid that windows of ``ws``
-    do not tile, ``ws`` odd or above 64, more than 65535 windows."""
+    not bf16, ``qkv`` not a contiguous (B, Hp, Wp, 3, heads, 64) from a
+    16-byte aligned address (its tensor map's base), tables not contiguous
+    (B, Hp, Wp, heads, ws) from a 4-byte aligned one, a grid that windows
+    of ``ws`` do not tile, ``ws`` odd or above 64, more than 65535
+    windows."""
     for t in (qkv, rel_h, rel_w):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"rel_attention takes bf16 tensors, got "
@@ -128,6 +142,10 @@ def _check(qkv, rel_h, rel_w, ws):
             raise ValueError("rel_attention's tensors must be on one device")
         if not t.is_contiguous():
             raise ValueError("rel_attention takes contiguous tensors")
+        if t.data_ptr() % (16 if t is qkv else 4):
+            raise ValueError(f"rel_attention takes qkv 16-byte and the "
+                             f"tables 4-byte aligned, got an address "
+                             f"{t.data_ptr() % 16} bytes past 16")
     if qkv.dim() != 6 or qkv.shape[3] != 3 or qkv.shape[5] != HEAD_DIM:
         raise ValueError(f"qkv must be (B, Hp, Wp, 3, heads, {HEAD_DIM}), "
                          f"got {tuple(qkv.shape)}")
@@ -159,7 +177,9 @@ def rel_attention(qkv: torch.Tensor, rel_h: torch.Tensor,
                   rel_w: torch.Tensor, ws: int, scale: float) -> torch.Tensor:
     """The kernel: the arguments as :func:`rel_attention_ref` takes them
     -> a new (B, Hp, Wp, heads · 64) bf16 tensor. Raises for tensors off
-    the card and for what the kernel does not take (:func:`_check`)."""
+    the card and for what the kernel does not take (:func:`_check`).
+    Counts the launch in ``launches`` and in ``path_launches`` by its
+    :func:`path`."""
     global launches
     if qkv.device.type != "cuda":
         raise ValueError(f"rel_attention runs on CUDA tensors, got "
@@ -174,6 +194,7 @@ def rel_attention(qkv: torch.Tensor, rel_h: torch.Tensor,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     cuda_build.check("rel_attention", rc, "rel_attention")
     launches += 1
+    path_launches[path(ws)] += 1
     return out
 
 

@@ -144,6 +144,16 @@ def test_the_wrapper_takes_what_the_kernel_takes():
     att._check(*_good(Hp=64, Wp=64, ws=64))
 
 
+def _offset(shape, elems):
+    """A contiguous bf16 meta tensor of ``shape`` starting ``elems``
+    values into its storage (its address ``2 · elems`` bytes past an
+    aligned one)."""
+    n = 1
+    for d in shape:
+        n *= d
+    return _meta((n + elems,))[elems:].view(shape)
+
+
 @pytest.mark.parametrize("bad, err", [
     (lambda a: (a[0].float(), *a[1:]), TypeError),
     (lambda a: (_meta((2, 28, 28, 3, 2, 32)), *a[1:]), ValueError),
@@ -153,8 +163,11 @@ def test_the_wrapper_takes_what_the_kernel_takes():
     (lambda a: _good(Hp=30, Wp=28), ValueError),
     (lambda a: _good(Hp=66, Wp=66, ws=66), ValueError),
     (lambda a: _good(B=2700, Hp=10, Wp=10, ws=2), ValueError),
+    (lambda a: (_offset(a[0].shape, 4), *a[1:]), ValueError),
+    (lambda a: (a[0], _offset(a[1].shape, 1), *a[2:]), ValueError),
 ], ids=["float32", "head-dim-32", "strided", "table", "odd-window",
-        "untiled-grid", "window-66", "too-many-windows"])
+        "untiled-grid", "window-66", "too-many-windows", "qkv-8-bytes-off",
+        "table-2-bytes-off"])
 def test_the_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
     with pytest.raises(err):
         att._check(*bad(_good()))
@@ -178,16 +191,36 @@ def test_launches_count_with_the_other_kernels():
     assert att.launches == 0 and launch_counts()["rel_attention"] == 0
 
 
+def test_path_launches_reset_with_the_launch_counts():
+    """``path_launches`` counts the kernel's launches by tiling, the row
+    path where a window is 64 wide and the window path below, and
+    ``ops.reset_launch_counts`` sets both back to 0."""
+    assert set(att.path_launches) == {"row", "window"}
+    assert att.path(64) == "row"
+    assert [att.path(ws) for ws in (2, 14, 32, 62)] == ["window"] * 4
+    att.path_launches.update(row=4, window=8)
+    reset_launch_counts()
+    assert att.path_launches == {"row": 0, "window": 0}
+
+
 def test_the_benchmark_finds_the_kernel_by_its_name():
-    """The kernel's name holds ``rel_attention``, which the roofline's
+    """Each kernel's name holds ``rel_attention``, which the roofline's
     reader looks for, and no key of the trace's categories: it reads
-    "other", not "gemm" or "elementwise"."""
+    "other", not "gemm" or "elementwise". The one kernel template is
+    launched as the row path (its keys a step, ``true``) and the window
+    path (its key slots a step, ``false``)."""
     src = (cuda_build.CSRC / "rel_attention.cu").read_text()
     names = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*"
                            r"(\w+)\(", src))
     assert names == {"rel_attention_fwd_kernel"}
-    for flag in ("true", "false"):
+    keys = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("kRowKeys", "kWinKeys")}
+    assert "launch<kRowKeys, true>" in src
+    assert "launch<kWinKeys, false>" in src
+    for kn, flag in ((keys["kRowKeys"], "true"),
+                     (keys["kWinKeys"], "false")):
         name = (f"void (anonymous namespace)::rel_attention_fwd_kernel<"
-                f"{flag}>((anonymous namespace)::Params)")
+                f"{kn}, {flag}>(CUtensorMap_st, CUtensorMap_st, "
+                f"(anonymous namespace)::Params)")
         assert "rel_attention" in name
         assert trace.category(name) == "other"

@@ -26,6 +26,10 @@ pytestmark = pytest.mark.card
 
 BF16_PEAK = 989e12              # H100 SXM dense bf16, 700 W
 HBM_BYTES_PER_S = 3.35e12
+# the design's floor at ViTDet-B's B = 16 shapes: % of the least time a
+# call's work needs (its FLOPs on the row path, its bytes on the window
+# path)
+FLOOR_PCT = {"window": 25.0, "global": 35.0}
 
 
 @pytest.fixture
@@ -51,10 +55,13 @@ def inputs(B, Hp, Wp, ws, heads, dev, seed, rel_std=0.1):
 
 # (B, Hp, Wp, ws, heads): ViTDet-B's windowed block at 1024 px (70 = 64
 # padded to 5 windows of 14) and its global block; a window of exactly 64
-# keys that is not the global path; ragged windows and grids; the smallest
+# keys that is not the global path; ragged windows and grids; the smallest;
+# windows whose widest key step (7 rows of 28, 3 of 60) would not leave its
+# tiles room in shared memory
 SHAPES = [(16, 70, 70, 14, 12), (16, 64, 64, 64, 12), (2, 16, 24, 8, 3),
           (3, 28, 42, 14, 2), (1, 60, 60, 30, 2), (2, 12, 12, 6, 1),
-          (1, 32, 32, 32, 4), (2, 4, 6, 2, 1), (1, 128, 64, 64, 2)]
+          (1, 32, 32, 32, 4), (2, 4, 6, 2, 1), (1, 128, 64, 64, 2),
+          (2, 56, 84, 28, 2), (1, 120, 60, 60, 1)]
 
 
 @pytest.mark.parametrize("rel_std", [0.1, 1.0])
@@ -92,12 +99,15 @@ def test_a_call_through_attention_counts_and_launches(card):
     qkv, _, _ = inputs(2, 28, 28, 14, 2, card, seed=5)
     rp = torch.randn((27, 64), device=card).to(torch.bfloat16)
     before, launches = dict(att.counts), att.launches
+    paths = dict(att.path_launches)
     with torch.inference_mode():
         out = att.attention(qkv.view(2, 28, 28, -1), rp, rp, 2, 14)
     assert out.shape == (2, 28, 28, 128)
     assert att.counts["fused"] == before["fused"] + 1
     assert att.counts["plain"] == before["plain"]
     assert att.launches == launches + 1
+    assert att.path_launches == {"row": paths["row"],
+                                 "window": paths["window"] + 1}
 
 
 def _time_ms(fn, reps=20) -> float:
@@ -118,7 +128,8 @@ def test_kernel_time_against_its_bound(shape, card):
     """CUDA-event time of a call at ViTDet-B's B = 16 shapes beside the
     least time of its work (4·N²·64 FLOPs a head and window at 989
     TFLOP/s, or q, k, v, out and the tables once at 3.35 TB/s) and the
-    plain version's; printed as a JSON line."""
+    plain version's; printed as a JSON line. The call reaches at least
+    the design's floor of that bound (``FLOOR_PCT``)."""
     B, Hp, Wp, ws, heads = shape
     qkv, rel_h, rel_w = inputs(B, Hp, Wp, ws, heads, card, seed=1)
     N, windows = ws * ws, B * (Hp // ws) * (Wp // ws)
@@ -130,20 +141,22 @@ def test_kernel_time_against_its_bound(shape, card):
                                                 0.125))
         plain = _time_ms(lambda: att.rel_attention_ref(qkv, rel_h, rel_w,
                                                        ws, 0.125), reps=2)
-    print(json.dumps({"k7": "window" if ws != Hp else "global",
-                      "shape": shape, "ms": ms, "bound_ms": bound,
-                      "roofline_pct": 100 * bound / ms,
+    kind = "window" if ws != Hp else "global"
+    print(json.dumps({"k7": kind, "shape": shape, "ms": ms,
+                      "bound_ms": bound, "roofline_pct": 100 * bound / ms,
                       "tflops": flops / ms / 1e9, "plain_ms": plain,
                       "card": torch.cuda.get_device_name(card)}))
     assert ms >= bound
+    assert 100 * bound / ms >= FLOOR_PCT[kind], (ms, bound)
 
 
 def test_vitdet_forward_takes_the_kernel_and_no_n_by_n_tensor(card):
     """ViTDet-B at 1024 px, B = 16 tiles of 256 px, bf16, on the family's
     seeded weights: every attention call through the kernel (12 a
-    forward), and the forward's peak device memory under 6.4 GB, what one
-    global block's materialised scores (16 × 12 × 4096² in bf16) would
-    take alone."""
+    forward: the 4 global blocks on its row path, the 8 windowed ones on
+    its window path), and the forward's peak device memory under 6.4 GB,
+    what one global block's materialised scores (16 × 12 × 4096² in bf16)
+    would take alone."""
     from portbench import modelgen, spec
 
     cfg = vitdet_b()
@@ -160,6 +173,7 @@ def test_vitdet_forward_takes_the_kernel_and_no_n_by_n_tensor(card):
         torch.cuda.reset_peak_memory_stats(card)
         base = torch.cuda.memory_allocated(card)
         before, launches = dict(att.counts), att.launches
+        paths = dict(att.path_launches)
         # 3 warm-up forwards and 5 timed, 12 attention calls each
         ms = _time_ms(lambda: forward_prepared(state, tiles, cfg, True,
                                                "bits"), reps=5)
@@ -167,6 +181,8 @@ def test_vitdet_forward_takes_the_kernel_and_no_n_by_n_tensor(card):
     assert att.counts["plain"] == before["plain"]
     assert att.counts["fused"] - before["fused"] == 12 * 8
     assert att.launches - launches == 12 * 8
+    assert {k: att.path_launches[k] - paths[k] for k in paths} == {
+        "row": 4 * 8, "window": 8 * 8}
     print(json.dumps({"vitdet_b16": {"ms": ms, "tiles_per_s": 16e3 / ms,
                                      "peak_bytes": peak,
                                      "state_and_inputs_bytes": base,
