@@ -2,38 +2,38 @@
 sharded over several.
 
 Port of the reference's ``TileInferenceEngine`` (engine/infer.py there),
-its scan-k dispatch included:
+its scan-k dispatch included. One pipeline runs every case: a dispatch is
+a group of ``scan_k`` padded batches (one batch at ``scan_k=1``).
 
+* ``run`` zero-pads each batch to the batch size (trimmed after), stages
+  it into its group's host slot, dispatches the group once it holds
+  ``scan_k`` batches, and fetches a group's result only once ``in_flight``
+  newer groups are queued behind it, so host decode and result handling
+  overlap device compute. The tail group is padded with zero batches of
+  ``n = 0``, dropped after the fetch. The batches of a group have one
+  tile size; the next group may take another;
 * ``devices=[...]``, the counterpart of the reference's ``devices=`` and
   its ``("data",)`` mesh: one replica of the state a device, each batch
   split into contiguous shards (rows ``[r·b, (r+1)·b)`` on device r, as
-  ``P("data")`` places them), each shard staged and run on its device's
-  side stream, and the packed outputs gathered in row order into one
-  host buffer. A batch size the devices do not divide runs on the first
-  device, as in the reference. Two entries may name one device (two
-  replicas, two streams);
-* a lag-``in_flight`` pipeline: each batch is uploaded from a pinned host
-  buffer and run on a side CUDA stream, and its result is fetched only
-  once ``in_flight`` newer batches are queued behind it, so host decode
-  and result handling overlap device compute;
-* a packed fetch: every output (boxes/scores/classes/valid/masks) is
-  viewed as bytes and concatenated into ONE (b, bytes) uint8 buffer on
-  the device, copied with a single device->host transfer a shard into
-  its rows of a pinned (B, bytes) buffer, and unpacked on the host with
-  numpy views;
-* the tail batch is zero-padded to the batch size and trimmed after;
-* ``scan_k`` > 1, the reference's scan-k dispatch: ``scan_k`` padded
-  batches make a group, the tail group padded with zero batches of
-  ``n = 0`` that are dropped after the fetch, and ``in_flight`` counts
-  groups. On CUDA each replica replays a CUDA graph of ``scan_k``
-  forwards (``models.mask_rcnn.capture_scan``, captured at its first
-  group) on its side stream: a group is one pinned (k, shard, H, W, 3)
-  slot a replica, one host-to-device copy into the graph's static input,
-  one replay into a static packed (k, shard, bytes) output and one
-  device-to-host copy a shard. A failed capture raises. ``scan_k=1`` is
-  the eager loop above;
+  ``P("data")`` places them), and the packed outputs gathered in row
+  order into one host buffer. A batch size the devices do not divide
+  runs on the first device, as in the reference. Two entries may name
+  one device (two replicas, two streams);
+* a dispatch, on each replica's side CUDA stream: one host-to-device copy
+  of its pinned (k, shard, H, W, 3) slot; the group's forwards, every
+  output (boxes/scores/classes/valid/masks) viewed as bytes and
+  concatenated into ONE (shard, bytes) uint8 buffer on the device; one
+  device-to-host copy of the packed (k, shard, bytes) result into the
+  replica's rows of a pinned (replicas, k, shard, bytes) host buffer; one
+  event. On CUDA at ``scan_k`` > 1 the forwards are one replay of a CUDA
+  graph of ``scan_k`` packed forwards (``models.mask_rcnn.capture_scan``,
+  captured at the replica's first group; a failed capture raises), else
+  they run eagerly. On the CPU (``device="cpu"``) the same loop runs
+  synchronously, with no stream and no event;
+* the drain waits on a group's events and unpacks each batch from the
+  host buffer with numpy views;
 * ``stats`` keeps the host's seconds in each step: ``h2d_s`` (staging +
-  issuing the upload), ``d2h_s`` (waiting for a batch's result) and
+  issuing the upload), ``d2h_s`` (waiting for a group's result) and
   ``unpack_s`` (copying it out of the pinned buffer into the caller's
   arrays), beside ``tiles_seen``. The steps are also spans
   (``utils.profiling.span``: ``engine.stage``, ``engine.dispatch``,
@@ -45,8 +45,6 @@ its scan-k dispatch included:
   compiled function outlives a call through its ``lru_cache``;
   ``pipeline.detections.detect_tiles`` keeps engines so).
 
-On the CPU (``device="cpu"``) the same loop runs synchronously, a group
-as its forwards one after the other.
 ``prefetch_iter`` (the reference's) runs a producer, such as the tile
 decode of ``pipeline/detections.py``, in a thread ahead of the engine.
 """
@@ -200,8 +198,8 @@ class TileInferenceEngine:
         self.with_masks = with_masks
         self.mask_format = mask_format
         self.cuda = self.device.type == "cuda"
-        # in_flight + 1 pinned slots: a slot is reused only after the batch
-        # (or group) that last used it was drained (its events waited on)
+        # in_flight + 1 pinned slots: a slot is reused only after the group
+        # that last used it was drained (its events waited on)
         self._slots = self.in_flight + 1
         self.replicas = [_Replica(state, d, cfg, self._slots)
                          for d in devices]
@@ -246,85 +244,10 @@ class TileInferenceEngine:
                 rep.state, rep.graph = placed, None
         self.state = self.replicas[0].state
 
-    def _stage(self, rep: _Replica, slot: int,
-               images: np.ndarray) -> torch.Tensor:
-        """Host images -> device tensor (on CUDA: a pinned staging buffer
-        and an async copy on the current stream, the replica's side
-        stream)."""
-        with self._timed("engine.stage", "h2d_s"):
-            if not self.cuda:
-                return torch.from_numpy(images)
-            buf = rep.in_bufs[slot]
-            if buf is None or buf.shape != images.shape:
-                buf = torch.empty(images.shape, dtype=torch.uint8,
-                                  pin_memory=True)
-                rep.in_bufs[slot] = buf
-            buf.numpy()[...] = images
-            return buf.to(rep.device, non_blocking=True)
-
-    @span("engine.dispatch")
-    def _dispatch(self, images: np.ndarray, n: int):
-        slot = self._n_dispatched % self._slots
-        self._n_dispatched += 1
-        b = self.shard
-        if not self.cuda:
-            parts = []
-            with torch.inference_mode():
-                for r, rep in enumerate(self.replicas):
-                    packed, meta = _pack(self._forward(rep, self._stage(
-                        rep, slot, images[r * b:(r + 1) * b])))
-                    parts.append(packed)
-            return torch.cat(parts).numpy(), meta, n, []
-        host = self._out_bufs[slot]
-        done = []
-        for r, rep in enumerate(self.replicas):
-            # the side stream waits for work queued before it (the
-            # weights' upload, a caller's tensors)
-            rep.stream.wait_stream(torch.cuda.current_stream(rep.device))
-            with torch.inference_mode(), torch.cuda.device(rep.device), \
-                    torch.cuda.stream(rep.stream):
-                packed, meta = _pack(self._forward(rep, self._stage(
-                    rep, slot, images[r * b:(r + 1) * b])))
-                rows = (self.batch_size, packed.shape[1])
-                if host is None or host.shape != rows:
-                    host = torch.empty(rows, dtype=torch.uint8,
-                                       pin_memory=True)
-                    self._out_bufs[slot] = host
-                # ONE d2h copy a shard, into its rows
-                host[r * b:(r + 1) * b].copy_(packed, non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record(rep.stream)
-                done.append(ev)
-        return host.numpy(), meta, n, done
-
-    def _forward(self, rep: _Replica, x: torch.Tensor) -> dict:
-        return forward_prepared(rep.state, x, self.cfg, self.with_masks,
-                                self.mask_format)
-
-    def _drain(self, item) -> dict:
-        buf, meta, n, done = item
-        with self._timed("engine.drain", "d2h_s"):
-            for ev in done:
-                ev.synchronize()
-        self.tiles_seen += n
-        with self._timed("engine.unpack", "unpack_s"):
-            return _unpack(buf, meta, n)
-
-    def _padded(self, images) -> tuple[np.ndarray, int]:
-        images = np.asarray(images, np.uint8)
-        n = images.shape[0]
-        if not 0 < n <= self.batch_size:
-            raise ValueError(f"batch of {n} tiles; 1..{self.batch_size}"
-                             " expected")
-        if n < self.batch_size:
-            pad = np.zeros((self.batch_size - n,) + images.shape[1:],
-                           np.uint8)
-            images = np.concatenate([images, pad])
-        return images, n
-
-    def _stage_group(self, slot: int, i: int, images: np.ndarray):
+    def _stage(self, slot: int, i: int, images: np.ndarray):
         """Batch i of the group in ``slot``: each replica's rows into its
-        (k, shard, H, W, 3) host buffer, pinned on CUDA."""
+        (k, shard, H, W, 3) host buffer, pinned on CUDA. A group's first
+        batch may bring a new tile size (a new buffer), the others not."""
         b = self.shard
         shape = (self.scan_k, b) + images.shape[1:]
         with self._timed("engine.stage", "h2d_s"):
@@ -339,6 +262,86 @@ class TileInferenceEngine:
                                       pin_memory=self.cuda)
                     rep.in_bufs[slot] = buf
                 buf.numpy()[i] = images[r * b:(r + 1) * b]
+
+    @span("engine.dispatch")
+    def _dispatch(self, slot: int, ns: list):
+        """Run the group staged in ``slot`` on every replica: upload its
+        rows, run the group's forwards (on CUDA at ``scan_k`` > 1, a
+        replay of the replica's graph of them) and fetch the packed
+        result with one copy; -> (host (replicas, k, shard, bytes) buffer,
+        meta, ns, events)."""
+        self._n_dispatched += 1
+        host = self._out_bufs[slot]
+        done = []
+        for r, rep in enumerate(self.replicas):
+            with contextlib.ExitStack() as ctx:
+                ctx.enter_context(torch.inference_mode())
+                if self.cuda:
+                    # the side stream waits for work queued before it (the
+                    # weights' upload, a caller's tensors); the replica's
+                    # event is recorded after its fetch, as the block ends
+                    rep.stream.wait_stream(
+                        torch.cuda.current_stream(rep.device))
+                    ctx.enter_context(torch.cuda.device(rep.device))
+                    ctx.enter_context(torch.cuda.stream(rep.stream))
+                    done.append(torch.cuda.Event())
+                    ctx.callback(done[-1].record, rep.stream)
+                staged = rep.in_bufs[slot]
+                if self.cuda and self.scan_k > 1:
+                    graph = self._scan_graph(rep, tuple(staged.shape))
+                    with self._timed("engine.stage", "h2d_s"):
+                        graph.static_in.copy_(staged, non_blocking=True)
+                    graph.replay()
+                    out, meta = graph.outputs["packed"], graph.meta
+                else:
+                    with self._timed("engine.stage", "h2d_s"):
+                        x = staged.to(rep.device, non_blocking=True)
+                    packed, metas = zip(*(_pack(self._forward(rep, xi))
+                                          for xi in x))
+                    meta = metas[0]
+                    # one batch (every eager group on CUDA) is viewed as
+                    # (1, shard, bytes): no device copy
+                    out = torch.stack(packed) if len(packed) > 1 \
+                        else packed[0][None]
+                shape = (len(self.replicas),) + tuple(out.shape)
+                if host is None or tuple(host.shape) != shape:
+                    host = torch.empty(shape, dtype=torch.uint8,
+                                       pin_memory=self.cuda)
+                    self._out_bufs[slot] = host
+                # ONE device-to-host copy a replica, into its rows
+                host[r].copy_(out, non_blocking=True)
+        return host.numpy(), meta, ns, done
+
+    def _forward(self, rep: _Replica, x: torch.Tensor) -> dict:
+        return forward_prepared(rep.state, x, self.cfg, self.with_masks,
+                                self.mask_format)
+
+    def _drain(self, item) -> list:
+        buf, meta, ns, done = item
+        with self._timed("engine.drain", "d2h_s"):
+            for ev in done:
+                ev.synchronize()
+        out = []
+        with self._timed("engine.unpack", "unpack_s"):
+            for i, n in enumerate(ns):
+                if n:                   # the tail group's empty batches go
+                    self.tiles_seen += n
+                    # a view where one replica (or one batch) holds the rows
+                    out.append(_unpack(buf[:, i].reshape(-1, buf.shape[-1]),
+                                       meta, n))
+        return out
+
+    def _padded(self, images) -> tuple[np.ndarray, int]:
+        images = np.asarray(images, np.uint8)
+        n = images.shape[0]
+        if not 0 < n <= self.batch_size:
+            raise ValueError(f"batch of {n} tiles; 1..{self.batch_size}"
+                             " expected")
+        if n < self.batch_size:
+            pad = np.zeros((self.batch_size - n,) + images.shape[1:],
+                           np.uint8)
+            images = np.concatenate([images, pad])
+        return images, n
 
     def _scan_graph(self, rep: _Replica, shape: tuple):
         """The replica's graph of ``scan_k`` packed forwards at ``shape``,
@@ -361,95 +364,28 @@ class TileInferenceEngine:
             rep.graph.meta = meta
         return rep.graph
 
-    @span("engine.dispatch")
-    def _dispatch_group(self, slot: int, ns: list):
-        """Run the group staged in ``slot``; -> (host (replicas, k, shard,
-        bytes) buffer, meta, ns, events)."""
-        if not self.cuda:
-            parts = []
-            with torch.inference_mode():
-                for rep in self.replicas:
-                    x = rep.in_bufs[slot]
-                    packed = [_pack(self._forward(rep, x[i]))
-                              for i in range(self.scan_k)]
-                    parts.append(torch.stack([p for p, _ in packed]))
-            return torch.stack(parts).numpy(), packed[0][1], ns, []
-        host = self._out_bufs[slot]
-        done = []
-        for r, rep in enumerate(self.replicas):
-            rep.stream.wait_stream(torch.cuda.current_stream(rep.device))
-            with torch.inference_mode(), torch.cuda.device(rep.device), \
-                    torch.cuda.stream(rep.stream):
-                staged = rep.in_bufs[slot]
-                graph = self._scan_graph(rep, tuple(staged.shape))
-                with self._timed("engine.stage", "h2d_s"):
-                    graph.static_in.copy_(staged, non_blocking=True)
-                graph.replay()
-                out = graph.outputs["packed"]           # (k, shard, bytes)
-                shape = (len(self.replicas),) + tuple(out.shape)
-                if host is None or tuple(host.shape) != shape:
-                    host = torch.empty(shape, dtype=torch.uint8,
-                                       pin_memory=True)
-                    self._out_bufs[slot] = host
-                # ONE d2h copy a shard
-                host[r].copy_(out, non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record(rep.stream)
-                done.append(ev)
-        return host.numpy(), graph.meta, ns, done
-
-    def _drain_group(self, item) -> list:
-        buf, meta, ns, done = item
-        with self._timed("engine.drain", "d2h_s"):
-            for ev in done:
-                ev.synchronize()
-        out = []
-        with self._timed("engine.unpack", "unpack_s"):
-            for i, n in enumerate(ns):
-                if n:                   # the tail group's empty batches go
-                    self.tiles_seen += n
-                    out.append(_unpack(np.concatenate(buf[:, i]), meta, n))
-        return out
-
-    def _run_groups(self, image_iter):
-        queue = collections.deque()
-        ns: list = []
-        for images in image_iter:
-            images, n = self._padded(images)
-            self._stage_group(self._n_dispatched % self._slots, len(ns),
-                              images)
-            ns.append(n)
-            if len(ns) == self.scan_k:
-                slot = self._n_dispatched % self._slots
-                self._n_dispatched += 1
-                queue.append(self._dispatch_group(slot, ns))
-                ns = []
-                while len(queue) > self.in_flight:
-                    yield from self._drain_group(queue.popleft())
-        if ns:                          # tail: pad to k empty batches
-            slot = self._n_dispatched % self._slots
-            shape = self.replicas[0].in_bufs[slot].shape[2:]
-            while len(ns) < self.scan_k:
-                self._stage_group(slot, len(ns), np.zeros(
-                    (self.batch_size,) + tuple(shape), np.uint8))
-                ns.append(0)
-            self._n_dispatched += 1
-            queue.append(self._dispatch_group(slot, ns))
-        while queue:
-            yield from self._drain_group(queue.popleft())
-
     def run(self, image_iter):
         """Consume an iterator of (B', H, W, 3) uint8 arrays (B' ≤ batch
         size; the tail batch is padded and trimmed transparently); yields
         per-batch dicts of numpy detection arrays."""
-        if self.scan_k > 1:
-            yield from self._run_groups(image_iter)
-            return
         queue = collections.deque()
+        ns: list = []
         for images in image_iter:
             images, n = self._padded(images)
-            queue.append(self._dispatch(images, n))
-            while len(queue) > self.in_flight:
-                yield self._drain(queue.popleft())
+            slot = self._n_dispatched % self._slots
+            self._stage(slot, len(ns), images)
+            ns.append(n)
+            if len(ns) == self.scan_k:
+                queue.append(self._dispatch(slot, ns))
+                ns = []
+                while len(queue) > self.in_flight:
+                    yield from self._drain(queue.popleft())
+        if ns:                          # tail: pad to k empty batches
+            zeros = np.zeros((self.batch_size,) + images.shape[1:],
+                             np.uint8)
+            while len(ns) < self.scan_k:
+                self._stage(slot, len(ns), zeros)
+                ns.append(0)
+            queue.append(self._dispatch(slot, ns))
         while queue:
-            yield self._drain(queue.popleft())
+            yield from self._drain(queue.popleft())

@@ -114,14 +114,29 @@ def test_scan_k_3_equals_scan_k_1_exactly(engine_runs, label):
             np.testing.assert_array_equal(g[k], r[k], err_msg=k)
 
 
-def test_a_group_takes_tiles_of_one_size():
+@pytest.mark.parametrize("scan_k", [2, 1])
+def test_a_group_takes_tiles_of_one_size(scan_k):
+    """A group's batches share one tile size; at scan_k 1 each batch is a
+    group of its own, so the next may bring another size."""
     cfg = replace(narrow_cfg(64), detections_per_image=4)
-    eng = TileInferenceEngine(from_jax_params(narrow_tree(cfg)), cfg,
-                              batch_size=2, device="cpu", scan_k=2)
-    feed = [np.zeros((2, 64, 64, 3), np.uint8),
-            np.zeros((2, 32, 32, 3), np.uint8)]
-    with pytest.raises(ValueError, match="in a group of"):
-        list(eng.run(iter(feed)))
+    state = from_jax_params(narrow_tree(cfg))
+    eng = TileInferenceEngine(state, cfg, batch_size=2, device="cpu",
+                              scan_k=scan_k)
+    rng = np.random.default_rng(3)
+    feed = [rng.integers(0, 255, (2, 64, 64, 3), np.uint8),
+            rng.integers(0, 255, (2, 32, 32, 3), np.uint8)]
+    if scan_k > 1:
+        with pytest.raises(ValueError, match="in a group of"):
+            list(eng.run(iter(feed)))
+        return
+    outs = list(eng.run(iter(feed)))
+    assert len(outs) == len(feed) and eng.tiles_seen == 4
+    for got, images in zip(outs, feed):
+        ref = tm.forward_inference(state, images, cfg, device="cpu")
+        assert sorted(got) == sorted(ref)
+        for k, v in ref.items():
+            assert got[k].dtype == v.numpy().dtype, k
+            np.testing.assert_array_equal(got[k], v.numpy(), err_msg=k)
 
 
 def test_scan_fn_matches_the_reference_and_the_forwards():
