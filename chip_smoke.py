@@ -70,7 +70,16 @@ exits non-zero:
    plain version on the same inputs, no call through the plain version,
    and one call of each kind timed beside its plain version and its
    bound; then both shapes on unit normals with relative-position tables
-   of std 1 (terms of ~8 in the scores).
+   of std 1 (terms of ~8 in the scores). K8 (``layer_norm``, ViTDet's
+   LayerNorms with the residual sum, the window pad and the ReLU or GELU
+   beside them): every LN call of one ViTDet-B bf16 forward at B=16
+   (``K8_LAUNCHES`` = 41: 24 in the blocks, 9 in the pyramid, 8 in the
+   heads), the residual sum bit for bit, the LN within 2⁻⁸·|plain| + 1e-4
+   of its plain version in float32, the pad's bits zero, no call through
+   the plain version; one call of each shape and mode timed beside its
+   plain version and its byte bound (at the ViT's 4096 × 768 rows at least
+   ``K8_FLOOR`` of it); then ``K8_EDGES`` (ragged row counts and pads,
+   constant rows, C of 8, 24 and 1024).
 3. ``main_path``: the fast profile (R50-FPN at full width, bf16, random
    weights from a seed) through ``TileInferenceEngine.run`` over batches of
    64 random 256 px tiles, the last one short; K1 must have been launched
@@ -1591,6 +1600,219 @@ def phase_kernels_k7() -> tuple:
                  f"rel_attention outside its tolerance: {case}")
     torch.cuda.empty_cache()
     return cases, {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# K8: ViTDet's LayerNorms
+
+# a bf16 ViTDet-B forward's LN calls: 24 in the blocks (block 0's norm1
+# alone, the 11 others' with the previous MLP's output summed in, every
+# norm2 with the attention's; the windowed blocks' norm1 stored into the
+# 70x70 padded grid, their norm2's residual a slice of it), 9 in the
+# pyramid (P2's with its GELU), and the box head's and the mask head's 4
+# convs' each with its ReLU
+K8_LAUNCHES = 41
+# a call at the ViT's 4096 x 768 rows takes at most 1 / K8_FLOOR of its
+# byte bound
+K8_FLOOR = 0.70
+# the forward's calls by shape and mode, (B, H, W, C), residual ("none",
+# "dense" or a "strided" slice of the padded grid), act, pad_to: block 0's
+# norm1, a windowed block's norm1 and norm2, a global block's two; P2's
+# LN with GELU; the pyramid's LNs at P2..P5; the box and mask heads'
+K8_SHAPES = (((PB, 64, 64, 768), "none", None, (70, 70)),
+             ((PB, 64, 64, 768), "dense", None, (70, 70)),
+             ((PB, 64, 64, 768), "strided", None, None),
+             ((PB, 64, 64, 768), "dense", None, None),
+             ((PB, 128, 128, 384), "none", "gelu", None),
+             ((PB, 256, 256, 256), "none", None, None),
+             ((PB, 128, 128, 256), "none", None, None),
+             ((PB, 64, 64, 256), "none", None, None),
+             ((PB, 32, 32, 256), "none", None, None),
+             ((PB * 1000, 7, 7, 256), "none", "relu", None),
+             ((PB * 100, 14, 14, 256), "none", "relu", None))
+# ReLU's slope is at most 1, exact GELU's 1.13 (at x = √2)
+K8_SLOPE = {None: 1.0, "relu": 1.0, "gelu": 1.13}
+# (name, (B, H, W, C), residual: "none", "dense" or "strided", act, pad_to,
+# constant rows): rows that leave the last block ragged (15 rows, 7 x 11),
+# ragged pads, at each of the three widths; rows of one value (variance 0);
+# the 70x70 padded store with a strided residual
+K8_EDGES = (("ragged", (1, 3, 5, 768), "dense", None, None, False),
+            ("ragged_relu", (3, 7, 11, 256), "strided", "relu", None, False),
+            ("ragged_pad_gelu", (2, 5, 9, 384), "dense", "gelu", (7, 14),
+             False),
+            ("constant", (2, 8, 8, 768), "none", None, (9, 9), True),
+            ("constant_sum", (2, 8, 8, 256), "dense", "relu", None, True),
+            ("pad70_strided", (PB, 64, 64, 768), "strided", None, (70, 70),
+             False))
+
+
+def _k8_inputs(shape, residual: str, g, constant: bool = False):
+    """x (B, H, W, C) about N(0.5, 2), w about 1, b about 0, and the
+    residual: none, contiguous, or a slice of a larger grid (a padded
+    grid's rows); bf16. ``constant``: every third row of x one value, the
+    residual's zero there."""
+    B, H, W, C = shape
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5
+         ).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(C, generator=g, device="cuda")
+         ).to(torch.bfloat16)
+    b = (0.1 * torch.randn(C, generator=g, device="cuda")).to(torch.bfloat16)
+    r = None
+    if residual == "dense":
+        r = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    elif residual == "strided":
+        r = torch.randn((B, H + 6, W + 7, C), generator=g, device="cuda"
+                        ).to(torch.bfloat16)[:, :H, :W]
+    if constant:
+        x.view(-1, C)[::3] = 0.75
+        if r is not None:
+            r = r.contiguous()
+            r.view(-1, C)[::3] = 0
+    return x, w, b, r
+
+
+def _k8_case(x, w, b, eps, residual, act, pad_to, s, y) -> dict:
+    """One LN call of the kernel against its plain version on the same
+    inputs: ``s`` bit for bit PyTorch's bf16 add, ``y`` within
+    2⁻⁸·|plain| + 1e-4 of the plain version in float32 on that sum (its
+    LN before the activation, carried through the activation's slope;
+    GELU's output rounded once more to bf16, 2⁻⁸ of it), the pad's bits
+    exactly zero."""
+    from roadsurf_tpu_torch.ops.layer_norm import layer_norm_ref
+
+    want_s = x if residual is None else x + residual
+    args = (want_s.float(), w.float(), b.float(), eps)
+    _, z = layer_norm_ref(*args, pad_to=pad_to)
+    _, want = layer_norm_ref(*args, act=act, pad_to=pad_to)
+    tol = K8_SLOPE[act] * (2.0 ** -8 * z.abs() + 1e-4)
+    if act == "gelu":
+        tol += 2.0 ** -8 * want.abs()
+    err = (y.float() - want).abs()
+    B, H, W, C = x.shape
+    bits = y.view(torch.int16)
+    return {"shape": [B, H, W, C],
+            "residual": "none" if residual is None else
+            "dense" if residual.is_contiguous() else "strided",
+            "act": act, "pad_to": None if pad_to is None else list(pad_to),
+            "mismatches": int((err > tol).sum())
+            + int((~torch.isfinite(y.float())).sum()),
+            "s_mismatches": 0 if residual is None else int(
+                (s.view(torch.int16) != want_s.view(torch.int16)).sum()),
+            "pad_nonzero": int(bits[:, H:].count_nonzero())
+            + int(bits[:, :H, W:].count_nonzero()),
+            "max_abs_err": err.max().item(),
+            "err_over_tol": (err / tol).max().item()}
+
+
+def _k8_bytes(shape, residual: bool, pad_to) -> int:
+    """A call's bytes, each input read once and each output written once:
+    x, w and b, and with a residual r and s; y at the padded grid."""
+    B, H, W, C = shape
+    Hp, Wp = pad_to or (H, W)
+    rows = B * H * W * C * 2
+    return rows * (3 if residual else 1) + B * Hp * Wp * C * 2 + 4 * C
+
+
+def _k8_time(kernel, plain, key, g) -> dict:
+    """One call's time at ``key`` (shape, residual, act, pad_to) on fresh
+    inputs, the plain version's, and its byte bound."""
+    shape, residual, act, pad_to = key
+    x, w, b, r = _k8_inputs(shape, residual, g)
+    # a call at the ViT's smallest rows takes ~80 µs: enough warm-up calls
+    # to bring the card's clock up from the forward's synchronised calls
+    out = {"ms": _time_ms(lambda: kernel(x, w, b, 1e-6, r, act, pad_to),
+                          50, warmup=20),
+           "plain_ms": _time_ms(lambda: plain(x, w, b, 1e-6, r, act,
+                                              pad_to), 3, warmup=1),
+           "library_ms": None,
+           **_bound(_k8_bytes(shape, r is not None, pad_to), 0.0)}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    del x, w, b, r
+    return out
+
+
+def phase_kernels_k8() -> list:
+    """K8 (``layer_norm``) at ViTDet-B's shapes: every LN call of one bf16
+    forward at B=16 (``vitdet_b()``, 1024 px from 256 px tiles, the
+    benchmark family's weights of seed 8) held to its plain version
+    (:func:`_k8_case`), ``K8_LAUNCHES`` launches and no call through the
+    plain version; one call of each shape and mode timed beside its plain
+    version and its byte bound (:func:`_k8_time`), so the ``kernels``
+    line's K8 is one forward's calls; each call at the ViT's 4096 × 768
+    rows must reach ``K8_FLOOR`` of its bound. Then ``K8_EDGES``."""
+    from portbench import modelgen, spec
+    from roadsurf_tpu_torch.models.config import vitdet_b
+    from roadsurf_tpu_torch.models.mask_rcnn import forward_prepared, \
+        prepare_state
+    from roadsurf_tpu_torch.ops import layer_norm as lnm
+
+    kernel, plain = lnm.layer_norm_rows, lnm.layer_norm_ref
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cfg = vitdet_b()
+    cell = spec.cell("vitdet-b-1024.detect-b16")
+    state = prepare_state(cell.family.weights(
+        cell.config["settings"], modelgen.generator(8, "cuda"), "cuda",
+        torch.bfloat16), cfg, "cuda")
+    tiles = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (PB, TILE, TILE, 3), np.uint8)).cuda()
+    calls = []
+
+    def recording(x, w, b, eps, residual=None, act=None, pad_to=None):
+        s, y = kernel(x, w, b, eps, residual, act, pad_to)
+        torch.cuda.synchronize()
+        calls.append(_k8_case(x, w, b, eps, residual, act, pad_to, s, y))
+        return s, y
+
+    fused, plain0 = lnm.counts["fused"], lnm.counts["plain"]
+    _reset_counts()
+    lnm.layer_norm_rows = recording
+    try:
+        with torch.inference_mode():
+            forward_prepared(state, tiles, cfg, True, "bits")
+    finally:
+        lnm.layer_norm_rows = kernel
+    torch.cuda.synchronize()
+    launches = _read_counts()["layer_norm"]
+    keys = [(tuple(c["shape"]), c["residual"], c["act"],
+             None if c["pad_to"] is None else tuple(c["pad_to"]))
+            for c in calls]
+    _require(len(calls) == launches == K8_LAUNCHES
+             and lnm.counts["fused"] - fused == K8_LAUNCHES
+             and lnm.counts["plain"] == plain0
+             and set(keys) == set(K8_SHAPES),
+             f"layer_norm: {len(calls)} calls ({sorted(set(keys), key=str)}), "
+             f"{launches} launches, {lnm.counts['plain'] - plain0} plain; "
+             f"expected {K8_LAUNCHES} calls of K8_SHAPES and none plain")
+    del state, tiles
+    torch.cuda.empty_cache()
+    timed = {}
+    cases = []
+    for i, (c, key) in enumerate(zip(calls, keys)):
+        if key not in timed:
+            timed[key] = _k8_time(kernel, plain, key, g)
+            torch.cuda.empty_cache()
+        cases.append({"case": f"vitdet {i:02d} {c['residual']} "
+                      f"{c['act'] or ''} {'x'.join(map(str, c['shape']))}"
+                      f"{'' if key[3] is None else ' pad %dx%d' % key[3]}",
+                      "main": True, **c, **timed[key]})
+    for name, shape, residual, act, pad_to, constant in K8_EDGES:
+        x, w, b, r = _k8_inputs(shape, residual, g, constant)
+        s, y = kernel(x, w, b, 1e-6, r, act, pad_to)
+        torch.cuda.synchronize()
+        cases.append({"case": f"edge {name}", "main": False,
+                      **_k8_case(x, w, b, 1e-6, r, act, pad_to, s, y)})
+        del x, w, b, r, s, y
+    for case in cases:
+        _emit({"phase": "kernels", "kernel": "layer_norm", **case})
+        _require(case["mismatches"] == case["s_mismatches"]
+                 == case["pad_nonzero"] == 0,
+                 f"layer_norm outside its tolerance: {case}")
+        if case["main"] and case["shape"][1:] == [64, 64, 768]:
+            _require(case["bound_share"] >= K8_FLOOR,
+                     f"layer_norm at {K8_FLOOR:.0%} of its byte bound at "
+                     f"the ViT's rows: {case}")
+    torch.cuda.empty_cache()
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -4774,6 +4996,8 @@ KERNELS = {
     "bias_act": ("bias_act.cu", None, "bias_act"),
     # no TPU kernel: the JAX package has no ViT
     "rel_attention": ("rel_attention.cu", None, "rel_attention"),
+    # no TPU kernel: the JAX package has no ViT and no LayerNorm
+    "layer_norm": ("layer_norm.cu", None, "layer_norm"),
 }
 
 
@@ -4812,6 +5036,7 @@ def main() -> int:
              "roi_align_backward_f32": phase_kernels_k5(f32=True),
              "bias_act": phase_kernels_k6()}
     cases["rel_attention"], vitdet_forward = phase_kernels_k7()
+    cases["layer_norm"] = phase_kernels_k8()
     phase_kernels_k1_p5()
     runs = {"vitdet_forward": vitdet_forward}
     for label in PATHS:
@@ -4871,7 +5096,7 @@ def main() -> int:
     # (K3); K4's are its raw GEMMs at the int8 stack's 1x1 and box FC1
     # shapes; K5's one training step's, box and mask poolers at B=8; K6's
     # the parity forward's 77 calls; K7's the 12 of a ViTDet-B forward at
-    # B=16
+    # B=16, K8's its 41
     _emit({"kernels": [
         _record(name, "roadsurf_tpu_torch/csrc/" + src,
                 "roadsurf_tpu/ops/" + tpu if tpu else None,
@@ -4879,7 +5104,8 @@ def main() -> int:
                  if r["launches"][count]},
                 cases[name], "max_abs_err",
                 "case" if name in ("nms", "int8_gemm", "bias_act",
-                                   "rel_attention") else "pooler")
+                                   "rel_attention", "layer_norm")
+                else "pooler")
         for name, (src, tpu, count) in KERNELS.items()]})
     print(smi)
     _emit({"ok": True, "device": {"platform": "gpu",

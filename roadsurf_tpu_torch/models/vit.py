@@ -2,6 +2,12 @@
 attention, and the simple feature pyramid (``ModelConfig(backbone="vit")``,
 ``config.vitdet_b``).
 
+One contract differs from detectron2's ``Block``: a block's output is the
+pair ``(x', m)`` whose sum is the block's output, the MLP's output ``m``
+being summed by the next block's ``norm1`` in its LayerNorm pass. Run
+blocks through :func:`run_blocks` (or :func:`vit_forward`), which adds the
+last ``m``; ``_block`` is not a public entry point.
+
 Port of detectron2's ``modeling/backbone/vit.py`` (``ViT``, ``Block``,
 ``Attention``, ``SimpleFeaturePyramid``) and ``utils.py``
 (``window_partition``, ``get_abs_pos``) at inference: patch embedding (a
@@ -18,8 +24,12 @@ followed by a channel LN; P6 the stride-2 subsample of P5.
 Tokens are NHWC, (B, H, W, C), in the compute dtype; the pyramid's levels
 are NCHW in channels_last memory, as the FPN's. Every conv with a bias (the
 patch embedding, the deconvs) goes through ``ops.bias_act.conv_epilogue``;
-the convs without bias, each followed by a LN, stay plain. LN and GELU are
-ATen ops; the attention is ``ops.attention.attention`` (K7 on the card).
+the convs without bias, each followed by a LN, stay plain. Every LN goes
+through ``ops.layer_norm.layer_norm`` (K8 on the card) with its neighbours:
+a block's residual sums before its norms (the MLP's output is left to the
+next block's ``norm1``), the windowed blocks' pad after ``norm1``, the
+heads' ReLU and the pyramid's GELU after theirs. The MLP's GELU is ATen's;
+the attention is ``ops.attention.attention`` (K7 on the card).
 
 The state (``state["backbone"]``, ``state["fpn"]``), in the program's
 inference layout (convs OIHW, deconvs (in, out, kh, kw), linears (out,
@@ -48,27 +58,26 @@ import torch.nn.functional as F
 
 from ..ops.attention import attention
 from ..ops.bias_act import conv_epilogue
+from ..ops.layer_norm import layer_norm
 from ..utils.profiling import span
 
 LEVELS = ("p2", "p3", "p4", "p5")
 
 
-def ln(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
-    """LayerNorm over the last dim with ``p``'s affine."""
-    return F.layer_norm(x, (x.shape[-1],), p["w"], p["b"], eps)
-
-
-def ln2d(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
+def ln2d(x: torch.Tensor, p: dict, eps: float,
+         act: str | None = None) -> torch.Tensor:
     """detectron2's channel LayerNorm of an NCHW map in channels_last
-    memory: LN over C of the NHWC view, returned as an NCHW view."""
-    return ln(x.permute(0, 2, 3, 1), p, eps).permute(0, 3, 1, 2)
+    memory, then ``act`` ("relu", "gelu" or none): LN over C of the NHWC
+    view, returned as an NCHW view."""
+    _, y = layer_norm(x.permute(0, 2, 3, 1), p["w"], p["b"], eps, act=act)
+    return y.permute(0, 3, 1, 2)
 
 
 def conv_ln_relu(x: torch.Tensor, p: dict, norm: dict,
                  eps: float) -> torch.Tensor:
     """A head's conv without bias (k//2 padding), its channel LN, ReLU."""
     y = F.conv2d(x, p["w"], padding=p["w"].shape[-1] // 2)
-    return torch.relu(ln2d(y, norm, eps))
+    return ln2d(y, norm, eps, act="relu")
 
 
 def _deconv(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -115,32 +124,36 @@ def prepare(state: dict, cfg) -> dict:
                                                           grid)))
 
 
-def block(x: torch.Tensor, p: dict, cfg, window: int) -> torch.Tensor:
-    """One pre-LN block on tokens (B, H, W, C): attention within windows
-    of side ``window``, or over the grid where ``window`` is 0."""
+def _block(x: torch.Tensor, r: torch.Tensor | None, p: dict, cfg,
+           window: int) -> tuple:
+    """One pre-LN block on tokens ``x + r`` (B, H, W, C), ``r`` the
+    previous block's MLP output (None for the first block): attention
+    within windows of side ``window``, or over the grid where ``window``
+    is 0. Returns ``(x', m)``, the block's output being ``x' + m``: the
+    MLP's output ``m`` is left to the next block's ``norm1``, which sums
+    it in its pass."""
     B, H, W, C = x.shape
     eps = cfg.ln_eps
     with span("forward.attention.window" if window
               else "forward.attention.global"):
-        h = ln(x, p["norm1"], eps)
         if window:
             side = window
-            ph, pw = -H % window, -W % window
-            if ph or pw:
-                h = F.pad(h, (0, 0, 0, pw, 0, ph))
+            grid = (H + -H % window, W + -W % window)
         else:
             if H != W:
                 raise ValueError(f"global attention takes a square grid, "
                                  f"got {H}x{W}")
-            side = H
+            side, grid = H, None
+        x, h = layer_norm(x, p["norm1"]["w"], p["norm1"]["b"], eps,
+                          residual=r, pad_to=grid)
         qkv = F.linear(h, p["qkv"]["w"], p["qkv"]["b"])
         o = attention(qkv, p["rel_pos_h"], p["rel_pos_w"], cfg.vit_heads,
                       side)
         o = F.linear(o, p["proj"]["w"], p["proj"]["b"])
-    x = x + o[:, :H, :W]
-    h = F.gelu(F.linear(ln(x, p["norm2"], eps), p["fc1"]["w"],
-                        p["fc1"]["b"]))
-    return x + F.linear(h, p["fc2"]["w"], p["fc2"]["b"])
+    x, h = layer_norm(x, p["norm2"]["w"], p["norm2"]["b"], eps,
+                      residual=o[:, :H, :W])
+    h = F.gelu(F.linear(h, p["fc1"]["w"], p["fc1"]["b"]))
+    return x, F.linear(h, p["fc2"]["w"], p["fc2"]["b"])
 
 
 def vit_forward(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -157,11 +170,22 @@ def vit_forward(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         raise ValueError(f"the state's position embedding is not at the "
                          f"{H}x{W} grid: place the state with "
                          f"mask_rcnn.prepare_state")
-    t = t + pos.view(1, H, W, C)
-    for i, p in enumerate(params["blocks"]):
-        t = block(t, p, cfg,
-                  0 if i in cfg.vit_global_blocks else cfg.vit_window)
-    return t
+    windows = [0 if i in cfg.vit_global_blocks else cfg.vit_window
+               for i in range(len(params["blocks"]))]
+    return run_blocks(t + pos.view(1, H, W, C), params["blocks"], cfg,
+                      windows)
+
+
+def run_blocks(x: torch.Tensor, blocks: list, cfg, windows: list
+               ) -> torch.Tensor:
+    """Tokens (B, H, W, C) through the pre-LN ``blocks`` in turn, block i
+    attending within windows of side ``windows[i]`` (0: over the grid):
+    detectron2's blocks chained, each MLP's output summed in the next
+    block's ``norm1`` and the last one here."""
+    r = None
+    for p, window in zip(blocks, windows, strict=True):
+        x, r = _block(x, r, p, cfg, window)
+    return x if r is None else x + r
 
 
 def simple_feature_pyramid(params: dict, x: torch.Tensor, cfg) -> list:
@@ -174,8 +198,8 @@ def simple_feature_pyramid(params: dict, x: torch.Tensor, cfg) -> list:
         p = params[name]
         t = f
         if scale == 4.0:
-            t = _deconv(F.gelu(ln2d(_deconv(t, p["deconv1"]), p["norm"], eps)),
-                        p["deconv2"])
+            t = _deconv(ln2d(_deconv(t, p["deconv1"]), p["norm"], eps,
+                             act="gelu"), p["deconv2"])
         elif scale == 2.0:
             t = _deconv(t, p["deconv1"])
         elif scale == 0.5:

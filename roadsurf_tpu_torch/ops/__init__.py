@@ -1,5 +1,6 @@
 from . import attention as _attention
 from . import bias_act as _epilogue
+from . import layer_norm as _layer_norm
 from .int8_gemm import int8_gemm
 from .nms import batched_nms_fixed, nms_fixed, nms_scan, nms_sweep
 from .nms_kernel import nms_keep_mask
@@ -14,8 +15,8 @@ __all__ = ["int8_gemm", "roi_align_multilevel", "nms_fixed", "nms_sweep",
 
 # count name -> (kernel wrapper, attribute): each wrapper adds one where it
 # launches its kernel, the poolers per mode of their levels (K5 per type of
-# its d pooled); the conv epilogue's and the attention's counts are on their
-# modules
+# its d pooled); the conv epilogue's, the attention's and the LayerNorm's
+# counts are on their modules
 COUNTERS = {"roi_align": (roi_align_fused, "launches"),
             "roi_align_int8": (roi_align_fused, "launches_int8"),
             "roi_align_f32": (roi_align_fused, "launches_f32"),
@@ -29,7 +30,8 @@ COUNTERS = {"roi_align": (roi_align_fused, "launches"),
             "roi_align_backward": (roi_align_backward, "launches"),
             "roi_align_backward_f32": (roi_align_backward, "launches_f32"),
             "bias_act": (_epilogue, "launches"),
-            "rel_attention": (_attention, "launches")}
+            "rel_attention": (_attention, "launches"),
+            "layer_norm": (_layer_norm, "launches")}
 
 
 def launch_counts() -> dict:

@@ -2,14 +2,14 @@
 one card, so that two versions of a kernel are compared within one call.
 
     python3 roadsurf_tpu_torch/tools/time_kernels.py \\
-        --kernel {k1,k2,k3,k4,k5} [--k1-shapes] [--rounds N] TREE...
+        --kernel {k1,k2,k3,k4,k5,k8} [--k1-shapes] [--rounds N] TREE...
 
 The inputs are those of this checkout's ``chip_smoke.py`` (its
 ``_pool_inputs``, ``_parity_pool_inputs``, ``_quantized``,
-``_gemm_inputs`` and ``_k5_inputs``), the same for every tree; each
-tree's own kernel wrapper and plain version are called. Each tree runs in
-a process of its own (the trees share the package's name), in rounds that
-alternate them (A B A B ...).
+``_gemm_inputs``, ``_k5_inputs`` and ``_k8_inputs``), the same for
+every tree; each tree's own kernel wrapper and plain version are called.
+Each tree runs in a process of its own (the trees share the package's
+name), in rounds that alternate them (A B A B ...).
 
 - ``k1`` (``roi_align_fused``): the fast profile's poolers (B=64, P2..P4
   of a 256 px tile, C=256, s=2; box R=32 P=7, mask R=8 P=14) in both modes,
@@ -38,6 +38,11 @@ alternate them (A B A B ...).
   untimed, float32 gradients at B=2 (random and edge boxes) against the
   tree's plain version within ``chip_smoke.K5_REL``·max|plain| +
   ``K5_ABS``.
+- ``k8`` (``layer_norm_rows``): the LN calls of a ViTDet-B forward at B=16
+  by shape and mode (``chip_smoke.K8_SHAPES``), each held to the tree's
+  plain version as ``chip_smoke._k8_case`` holds it (the residual sum bit
+  for bit, the LN within 2⁻⁸·|plain| + 1e-4, the pad zero) and timed
+  beside its byte bound (``chip_smoke._k8_bytes``).
 
 Prints nvidia-smi's name and power limit, then JSON lines: per tree its
 build (ptxas's registers and spills), per (tree, round, case, mode) the
@@ -202,6 +207,33 @@ def _k3(tree_mod, cs, emit):
     return ok
 
 
+def _k8(kernel, cs, emit):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    ok = True
+    for shape, residual, act, pad_to in cs.K8_SHAPES:
+        x, w, b, r = cs._k8_inputs(shape, residual, g)
+        s, y = kernel(x, w, b, 1e-6, r, act, pad_to)
+        torch.cuda.synchronize()
+        case = cs._k8_case(x, w, b, 1e-6, r, act, pad_to, s, y)
+        del s, y
+        bad = case["mismatches"] + case["s_mismatches"] \
+            + case["pad_nonzero"]
+        ok &= bad == 0
+        ms = cs._time_ms(lambda: kernel(x, w, b, 1e-6, r, act, pad_to), 20)
+        bound = cs._bound(cs._k8_bytes(shape, r is not None, pad_to), 0.0)
+        emit({"case": f"{residual} {act or ''} "
+              f"{'x'.join(map(str, shape))}"
+              f"{'' if pad_to is None else ' pad %dx%d' % pad_to}",
+              "mode": "bf16", "ms": ms, "bound_ms": bound["bound_ms"],
+              "bound_share": bound["bound_ms"] / ms, "out_of_tolerance": bad,
+              "max_abs_err": case["max_abs_err"]})
+        del x, w, b, r
+        torch.cuda.empty_cache()
+    return ok
+
+
 def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
     cs = _inputs_module()
     sys.path.insert(0, tree)
@@ -209,7 +241,8 @@ def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
     from roadsurf_tpu_torch.ops import cuda_build
 
     source = {"k1": "roi_align", "k2": "roi_align_blocked", "k3": "nms",
-              "k4": "int8_gemm", "k5": "roi_align_backward"}[kernel_name]
+              "k4": "int8_gemm", "k5": "roi_align_backward",
+              "k8": "layer_norm"}[kernel_name]
     if rnd == 0:
         r = cuda_build.build(source)
         print(json.dumps({"tree": tree, "build_s": r["seconds"], "ptxas": [
@@ -230,6 +263,9 @@ def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
         from roadsurf_tpu_torch.ops.roi_align_backward_kernel import \
             roi_align_backward, roi_align_backward_ref
         ok = _k5((roi_align_backward, roi_align_backward_ref), cs, emit)
+    elif kernel_name == "k8":
+        from roadsurf_tpu_torch.ops.layer_norm import layer_norm_rows
+        ok = _k8(layer_norm_rows, cs, emit)
     else:
         if kernel_name == "k1":
             from roadsurf_tpu_torch.ops.roi_align_kernel import \
@@ -244,7 +280,7 @@ def one(tree: str, rnd: int, kernel_name: str, k1_shapes: bool):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5"),
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "k8"),
                     required=True)
     ap.add_argument("--k1-shapes", action="store_true",
                     help="k2 only: run K2's kernel at K1's cases")

@@ -82,10 +82,11 @@ def test_requantize_folded_exact():
 def test_k4_is_built_with_the_other_kernels_and_needs_no_nvcc_to_import():
     """The module imported above without nvcc (nothing builds at import);
     ``cuda_build`` builds ``csrc/int8_gemm.cu`` beside the poolers, NMS,
-    the poolers' gradient, the conv epilogue and the ViT's attention."""
+    the poolers' gradient, the conv epilogue, the ViT's attention and
+    the LayerNorm."""
     assert cuda_build.SOURCES == ("roi_align", "roi_align_blocked", "nms",
                                   "int8_gemm", "roi_align_backward",
-                                  "bias_act", "rel_attention")
+                                  "bias_act", "rel_attention", "layer_norm")
     assert (cuda_build.CSRC / "int8_gemm.cu").exists()
 
 

@@ -114,7 +114,7 @@ def test_a_block_is_detectron2s(window):
                   vit_window=3, compute_dtype="float32")
     st = {"ln_eps": cfg.ln_eps, "vit_heads": heads}
     x = torch.randn(2, 8, 8, dim, generator=g)
-    torch.testing.assert_close(vit.block(x, p, cfg, window),
+    torch.testing.assert_close(vit.run_blocks(x, [p], cfg, [window]),
                                V.block(p, x, st, window), atol=TOL, rtol=0)
 
 
